@@ -1,0 +1,107 @@
+"""The port never imports JAX: a fresh interpreter imports
+mpassit_tpu_torch.run.pipeline, runs a tiny pipeline on the CPU, and finds
+neither ``jax`` nor the JAX package's device-bound modules in
+sys.modules; and no source file of the package names jax in an import."""
+
+import ast
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "mpassit_tpu_torch")
+
+SCRIPT = r"""
+import os, sys
+import numpy as np
+import torch
+torch.set_num_threads(2)
+from mpassit_tpu_torch.run.pipeline import run_pipeline
+from mpassit_tpu.config import Config
+from mpassit_tpu.mesh.synthetic import synthetic_voronoi_mesh
+from mpassit_tpu_torch.testing import (
+    write_data_file_classic, write_grid_file_classic)
+
+d = sys.argv[1]
+mesh = synthetic_voronoi_mesh(ncells=800, nz=3, nsoil=2, seed=5)
+write_grid_file_classic(mesh, os.path.join(d, "grid.nc"))
+f2 = np.sin(np.deg2rad(mesh.lat_cell))
+lev = np.linspace(0, 1, 3)
+attrs = {"config_start_time": "2024-03-25_09:00:00", "config_dt": 60.0}
+write_data_file_classic(mesh, os.path.join(d, "diag.nc"),
+                        {"u10": 5 + f2, "v10": 1 + f2, "t2m": 280 + f2},
+                        attrs=attrs, xtime="2024-03-25_10:00:00")
+write_data_file_classic(
+    mesh, os.path.join(d, "hist.nc"),
+    {"skintemp": 285 + f2, "xland": np.where(f2 > 0, 1.0, 2.0),
+     "snow": 1 + f2, "theta": 300 + f2[:, None] + lev,
+     "uReconstructZonal": 10 + f2[:, None] + lev,
+     "uReconstructMeridional": -3 + f2[:, None] + lev,
+     "tslb": 275 + f2[:, None] + np.linspace(0, 1, 2)},
+    attrs=attrs, xtime="2024-03-25_10:00:00")
+for name, body in (("diaglist", "u10 U10\nv10 V10\nt2m T2\n"),
+                   ("histlist_2d", "skintemp TSK\nxland XLAND\nsnow SNOW\n"),
+                   ("histlist_3d", "theta T\nuReconstructZonal U\n"
+                                   "uReconstructMeridional V\n"),
+                   ("histlist_soil", "tslb TSLB\n")):
+    with open(os.path.join(d, name), "w") as f:
+        f.write(body)
+cfg = Config.from_dict({
+    "grid_file_input_grid": os.path.join(d, "grid.nc"),
+    "diag_file_input_grid": os.path.join(d, "diag.nc"),
+    "hist_file_input_grid": os.path.join(d, "hist.nc"),
+    "output_file": os.path.join(d, "out.nc"), "interp_diag": True,
+    "interp_hist": True, "wrf_mod_vars": True, "target_grid_type": "lambert",
+    "nx": 21, "ny": 16, "dx": 200e3, "dy": 200e3, "ref_lat": 38.5,
+    "ref_lon": -97.5, "truelat1": 38.5, "stand_lon": -97.5,
+    "varlist_dir": d})
+art = run_pipeline(cfg, device="cpu")
+assert np.isfinite(art.result.u).all() and art.result.u.shape == (15, 21, 3)
+bound = [m for m in sys.modules
+         if m == "jax" or m.startswith(("jax.", "jaxlib"))
+         or m.startswith(("mpassit_tpu.ops", "mpassit_tpu.run",
+                          "mpassit_tpu.parallel.sharding",
+                          "mpassit_tpu.parallel.multihost",
+                          "mpassit_tpu.compilecache"))]
+print("BOUND", bound)
+assert not bound, bound
+print("NO_JAX_OK")
+"""
+
+
+def test_pipeline_runs_without_importing_jax(tmp_path):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", SCRIPT, str(tmp_path)],
+                          cwd=str(tmp_path), env=env, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "NO_JAX_OK" in proc.stdout
+    assert os.path.exists(tmp_path / "out.nc")
+
+
+def test_no_source_file_imports_jax():
+    offenders = []
+    for root, _, files in os.walk(PKG):
+        for fn in files:
+            if not fn.endswith(".py"):
+                continue
+            path = os.path.join(root, fn)
+            with open(path) as f:
+                tree = ast.parse(f.read(), path)
+            for node in ast.walk(tree):
+                names = []
+                if isinstance(node, ast.Import):
+                    names = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom):
+                    names = [node.module or ""]
+                    if node.level:
+                        continue
+                for n in names:
+                    if n.split(".")[0] in ("jax", "jaxlib") or n.startswith(
+                            ("mpassit_tpu.ops", "mpassit_tpu.run",
+                             "mpassit_tpu.compilecache",
+                             "mpassit_tpu.parallel.sharding",
+                             "mpassit_tpu.parallel.multihost")):
+                        offenders.append(f"{path}: {n}")
+    assert not offenders, offenders
