@@ -9,24 +9,35 @@ device-bound modules. Phases, each printing one JSON line:
 
 - device: the card (name and power limit from nvidia-smi), torch and CUDA
   versions, whether h5py and ninja are importable;
-- build: compiles mpassit_tpu_torch/csrc/packed_apply.cu with nvcc;
+- build: compiles the three sources of mpassit_tpu_torch/csrc/ with nvcc,
+  one process each, started together;
 - inputs: a synthetic global MPAS mesh of 655,362 cells (the size of
   MPAS's x1.655362 30-km mesh), nz=55, nsoil=4, with seeded smooth fields
   for every variable of the shipped parm/ varlists, written as NetCDF4
   (or as CDF-2 through scipy when h5py is missing);
-- main_path: the CLI function ``mpassit_tpu_torch.run.pipeline.main``
-  on the shipped parm/namelist.input target (Lambert CONUS 3 km), its
-  file paths pointed at the inputs and a weights cache under .bench_cache/;
-  the kernel launch counters are zeroed just before and read just after;
-- check: sampled target points of every output variable against a
-  float64 numpy evaluation sum(w * src[idx]) of the same ELL weights
-  (after an f64 Q4 rotation for the winds), bound 1e-6 of the variable's
-  largest sampled magnitude;
-- kernel_vs_plain: the kernel against its plain PyTorch version on the
+- main_path, main_path_onehot, main_path_gather: the CLI function
+  ``mpassit_tpu_torch.run.pipeline.main`` on the shipped
+  parm/namelist.input target (Lambert CONUS 3 km), its file paths pointed
+  at the inputs and a weights cache under .bench_cache/, once per apply
+  route: the default, MPASSIT_ELL_KERNEL=0 (one-hot kernels) and
+  MPASSIT_GATHER_KERNEL=1 (in-kernel gather; the later runs find the
+  weights cache warm). Every kernel's launch and plain-call counters are
+  zeroed just before each run and read just after, against the launches
+  the route owes for the applies it made; stage timings and peak device
+  memory per run;
+- check (per route): sampled target points of every output variable
+  against a float64 numpy evaluation sum(w * src[idx]) of the same ELL
+  weights (after an f64 Q4 rotation for the winds), bound 1e-6 of the
+  variable's largest sampled magnitude; the gather route's result must
+  equal the default route's bit for bit, the one-hot route's within 1e-6
+  of each variable's largest magnitude;
+- kernel_vs_plain: each kernel against its plain PyTorch version on the
   card, at the main path's shapes: the packed bilinear+nearest+conserve
   pack of this mesh and grid at Cp=1024 with the (0, 55, 55) rotate window
-  (with and without checksum) and the EDGE1 restagger pack; median times
-  by CUDA events after a warm-up.
+  (with and without checksum) and the EDGE1 restagger pack (W ~ 1096,
+  Cp=128); the one-hot kernels for each precision; the gather kernel also
+  bit for bit against packed_apply; median times by CUDA events after a
+  warm-up.
 
 Then the kernels line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed phase exits non-zero.
@@ -295,13 +306,17 @@ def _time_ms(torch, fn, n):
 
 
 def kernel_vs_plain(art, device, seed):
-    """The kernel against packed_apply_plain on the card at the main
-    path's shapes. Returns (per-case results, kernel summary)."""
+    """Every kernel against its plain PyTorch version on the card at the
+    main path's shapes. Returns (per-case results, {kernel: summary});
+    the summary's ms/plain_ms are those of the kernel's first case."""
     import numpy as np
     import torch
 
+    from mpassit_tpu_torch.ops import gather_kernel as gk
+    from mpassit_tpu_torch.ops import onehot_kernel as ok
     from mpassit_tpu_torch.ops import packed_kernel as pk
     from mpassit_tpu_torch.ops.matmul_apply import (
+        CH,
         PackedSlabRegridder,
         SlabMatmulRegridder,
     )
@@ -311,34 +326,14 @@ def kernel_vs_plain(art, device, seed):
     W = build_weights(cfg, art.mesh, grid, art.routing)
     rng = np.random.default_rng(seed)
     nz = art.mesh.nz
-    # the packed bilinear+nearest+conserve operator at Cp = 1024 with the
-    # mass-wind window (0, nz, nz) first, like the main path's pack
-    cols = {"bilinear": 1024 - 2 * 16, "nearest": 16, "conserve": 16}
-    pack = PackedSlabRegridder(
-        [(W[k], c) for k, c in cols.items()], device,
-        rotate_spec=(((0, nz, nz),), grid.cosa, grid.sina),
-        cache_dir=cfg.weights_cache_dir)
-    edge = SlabMatmulRegridder(W["edge1"], device,
-                               cache_dir=cfg.weights_cache_dir)
     cases = []
 
-    def run_case(name, rg, C, kw, checksum):
-        src = torch.from_numpy(
-            rng.standard_normal((rg.n_src, C)).astype(np.float32)).to(device)
-        slab = torch.index_select(src, 0, rg.slab_idx).view(
-            rg.n_tiles, rg.W, C)
-        del src
-        if isinstance(rg, PackedSlabRegridder):
-            locs, ws = rg._ell_dev()
-        else:
-            locs, ws = (rg._ell_dev()[0],), (rg._ell_dev()[1],)
-        args = dict(nty=rg.nty, ntx=rg.ntx, with_checksum=checksum, **kw)
-        got = pk.packed_apply(slab, locs, ws, **args)
+    def run_case(kernel, name, call, plain, checksum, extra=None):
+        got = call()
         torch.cuda.synchronize()
-        ref = pk.packed_apply_plain(slab, locs, ws, **args)
+        ref = plain()
         torch.cuda.synchronize()
-        out = {"case": name, "shape": list(slab.shape),
-               "checksum": checksum}
+        out = {"kernel": kernel, "case": name, "checksum": checksum}
         if checksum:
             (got, gcs), (ref, rcs) = got, ref
             out["checksum_max_rel_err"] = float(
@@ -346,37 +341,207 @@ def kernel_vs_plain(art, device, seed):
                  / rcs.double().abs().clamp_min(1e-30)).max())
         d = (got - ref).abs()
         scale = float(ref.abs().max())
-        out.update(max_abs_err=float(d.max()), max_abs_plain=scale,
+        out.update(shape=list(got.shape), max_abs_err=float(d.max()),
+                   max_abs_plain=scale,
                    max_rel_err=float(d.max()) / max(scale, 1e-30),
                    finite=bool(torch.isfinite(got).all()))
+        if extra is not None:
+            out.update(extra(got))
         del got, ref, d
         if not checksum:
-            out["ms"] = _time_ms(torch, lambda: pk.packed_apply(
-                slab, locs, ws, **args), 10)
-            out["plain_ms"] = _time_ms(torch, lambda: pk.packed_apply_plain(
-                slab, locs, ws, **args), 5)
+            out["ms"] = _time_ms(torch, call, 10)
+            out["plain_ms"] = _time_ms(torch, plain, 5)
             if out["ms"] > out["plain_ms"]:
                 out["note"] = "kernel slower than plain"
         torch.cuda.empty_cache()
-        ok = (out["finite"] and out["max_rel_err"] <= TOL_KERNEL
-              and out.get("checksum_max_rel_err", 0.0) <= 1e-5)
-        out["ok"] = ok
+        ok_ = (out["finite"] and out["max_rel_err"] <= TOL_KERNEL
+               and out.get("checksum_max_rel_err", 0.0) <= 1e-5
+               and out.get("equal_to_packed_apply", True))
+        out["ok"] = ok_
         cases.append(out)
         emit({"phase": "kernel_vs_plain", **out})
-        if not ok:
+        if not ok_:
             raise AssertionError(f"kernel disagrees with plain: {out}")
 
-    pk_kw = dict(ranges=tuple(pack.ranges), rotate=pack.rotate,
-                 cosa=pack._cosa_t, sina=pack._sina_t)
-    run_case("packed_conus_cp1024_rot", pack, pack.Cp, pk_kw, False)
-    run_case("packed_conus_cp1024_rot", pack, pack.Cp, pk_kw, True)
-    run_case("edge1_restagger", edge, 128, dict(ranges=((0, 128),)), False)
-    main = cases[0]
-    return cases, {"max_abs_err": max(c["max_abs_err"] for c in cases),
-                   "ms": main["ms"], "plain_ms": main["plain_ms"]}
+    def operands(rg, C):
+        src = torch.from_numpy(rng.standard_normal(
+            (rg.n_src, C)).astype(np.float32)).to(device)
+        slab = torch.index_select(src, 0, rg.slab_idx).view(
+            rg.n_tiles, rg.W, C)
+        src_pad = torch.nn.functional.pad(src, (0, 0, 0, CH))
+        return slab, src_pad
+
+    def cover(rg, C, kw, tag):
+        """Every kernel on one operator: packed_apply, the one-hot kernel
+        for each precision, packed_gather_apply (bit for bit
+        packed_apply's output)."""
+        slab, src_pad = operands(rg, C)
+        locs, ws = rg._ell_dev()
+        ch, locs8, ws8 = rg._gather_dev()
+        nt = dict(nty=rg.nty, ntx=rg.ntx)
+        packed = isinstance(rg, PackedSlabRegridder)
+        sums = (False, True) if packed else (False,)
+        for cs in sums:
+            args = dict(**nt, **kw, with_checksum=cs)
+            run_case("packed_apply", tag, lambda: pk.packed_apply(
+                slab, locs, ws, **args), lambda: pk.packed_apply_plain(
+                slab, locs, ws, **args), cs)
+        for prec in ("split6_bf16", "split_bf16", "highest"):
+            for cs in sums:
+                if packed:
+                    args = dict(**nt, **kw, with_checksum=cs,
+                                precision=prec)
+                    run_case(
+                        "onehot_apply_packed", f"{tag}_{prec}",
+                        lambda: ok.onehot_apply_packed(rg.As, slab, **args),
+                        lambda: ok.onehot_apply_packed_plain(rg.As, slab,
+                                                             **args), cs)
+                else:
+                    run_case(
+                        "onehot_apply", f"{tag}_{prec}",
+                        lambda: ok.onehot_apply(rg.A, slab, **nt,
+                                                precision=prec),
+                        lambda: ok.onehot_apply_plain(rg.A, slab, **nt,
+                                                      precision=prec), cs)
+        rg._As = None
+        for cs in sums:
+            args = dict(**nt, **kw, with_checksum=cs)
+
+            def same(got):
+                k1 = pk.packed_apply(slab, locs, ws, **args)
+                k1 = k1[0] if cs else k1
+                return {"equal_to_packed_apply": bool(torch.equal(got, k1)),
+                        "W8": rg.W8}
+            run_case("packed_gather_apply", tag,
+                     lambda: gk.packed_gather_apply(src_pad, ch, locs8, ws8,
+                                                    W8=rg.W8, **args),
+                     lambda: gk.packed_gather_apply_plain(
+                         src_pad, ch, locs8, ws8, W8=rg.W8, **args), cs,
+                     extra=same)
+
+    # the packed bilinear+nearest+conserve operator at Cp = 1024 with the
+    # mass-wind window (0, nz, nz) first, like the main path's pack
+    cols = {"bilinear": 1024 - 2 * 16, "nearest": 16, "conserve": 16}
+    pack = PackedSlabRegridder(
+        [(W[k], c) for k, c in cols.items()], device,
+        rotate_spec=(((0, nz, nz),), grid.cosa, grid.sina),
+        cache_dir=cfg.weights_cache_dir)
+    cover(pack, pack.Cp, dict(ranges=tuple(pack.ranges), rotate=pack.rotate,
+                              cosa=pack._cosa_t, sina=pack._sina_t),
+          "packed_conus_cp1024_rot")
+    del pack
+    torch.cuda.empty_cache()
+    edge = SlabMatmulRegridder(W["edge1"], device,
+                               cache_dir=cfg.weights_cache_dir)
+    cover(edge, 128, dict(ranges=((0, 128),)), "edge1_restagger")
+    del edge
+    torch.cuda.empty_cache()
+    summary = {}
+    for c in cases:
+        s = summary.setdefault(c["kernel"], {"max_abs_err": 0.0})
+        s["max_abs_err"] = max(s["max_abs_err"], c["max_abs_err"])
+        if "ms" in c and "ms" not in s:
+            s.update(ms=c["ms"], plain_ms=c["plain_ms"], ms_case=c["case"])
+    return cases, summary
 
 
 # ----------------------------------------------------------------- main ----
+
+#: kernel -> (source, the TPU kernel it replaces)
+KERNELS = {
+    "packed_apply": ("mpassit_tpu_torch/csrc/packed_apply.cu",
+                     "mpassit_tpu/ops/pallas_matmul.py:482"),
+    "onehot_apply_packed": ("mpassit_tpu_torch/csrc/onehot_apply.cu",
+                            "mpassit_tpu/ops/pallas_matmul.py:482"),
+    "onehot_apply": ("mpassit_tpu_torch/csrc/onehot_apply.cu",
+                     "mpassit_tpu/ops/pallas_matmul.py:119"),
+    "packed_gather_apply": ("mpassit_tpu_torch/csrc/packed_gather.cu",
+                            "mpassit_tpu/ops/pallas_matmul.py:386"),
+}
+#: phase -> (route, switches)
+ROUTES = {
+    "main_path": ("ell", {}),
+    "main_path_onehot": ("onehot", {"MPASSIT_ELL_KERNEL": "0"}),
+    "main_path_gather": ("gather", {"MPASSIT_GATHER_KERNEL": "1"}),
+}
+TOL_ROUTE = 1e-6          # one-hot route vs default, rel to max|default|
+
+
+def _counters():
+    """(launches, plain calls) of every kernel wrapper."""
+    from mpassit_tpu_torch.ops import gather_kernel as gk
+    from mpassit_tpu_torch.ops import onehot_kernel as ok
+    from mpassit_tpu_torch.ops import packed_kernel as pk
+
+    return ({"packed_apply": pk.LAUNCHES, **ok.LAUNCHES,
+             "packed_gather_apply": gk.LAUNCHES},
+            {"packed_apply": pk.PLAIN_CALLS, **ok.PLAIN_CALLS,
+             "packed_gather_apply": gk.PLAIN_CALLS})
+
+
+def _zero_counters():
+    from mpassit_tpu_torch.ops import gather_kernel as gk
+    from mpassit_tpu_torch.ops import onehot_kernel as ok
+    from mpassit_tpu_torch.ops import packed_kernel as pk
+
+    pk.LAUNCHES = pk.PLAIN_CALLS = gk.LAUNCHES = gk.PLAIN_CALLS = 0
+    for d in (ok.LAUNCHES, ok.PLAIN_CALLS):
+        d.update(dict.fromkeys(d, 0))
+
+
+def expected_launches(route, calls, fetch):
+    """Kernel launches the route owes for the recorded applies: one per
+    packed apply, one per FETCH-column group of a slab apply, except on
+    the gather route, where a slab apply of at most FETCH columns is one
+    gather launch (and a wider one takes the default route)."""
+    e = dict.fromkeys(KERNELS, 0)
+    for kind, Cp in calls:
+        n = 1 if kind == "packed" else -(-Cp // fetch)
+        if route == "onehot":
+            e["onehot_apply_packed" if kind == "packed"
+              else "onehot_apply"] += n
+        elif route == "gather" and (kind == "packed" or Cp <= fetch):
+            e["packed_gather_apply"] += 1
+        else:
+            e["packed_apply"] += n
+    return e
+
+
+def _result_arrays(res):
+    out = {}
+    for cat in ("diag2d", "diag3d", "patch2d", "nz3d", "nzp13d", "vert3d",
+                "cons2d", "nstd2d", "soil"):
+        for name, arr, *_ in getattr(res, cat, None) or []:
+            out[f"{cat}.{name}"] = arr
+    for name in ("u", "v", "hgt"):
+        if getattr(res, name, None) is not None:
+            out[name] = getattr(res, name)
+    return out
+
+
+def compare_results(got, ref):
+    """Max abs and max rel (to the variable's max|ref|) difference over
+    every result array, and whether all are bit-identical."""
+    import numpy as np
+
+    a, b = _result_arrays(got), _result_arrays(ref)
+    if list(a) != list(b):
+        raise AssertionError(f"result variables differ: {list(a)} {list(b)}")
+    worst_abs = worst_rel = 0.0
+    identical = True
+    for k in b:
+        x, y = np.asarray(a[k]), np.asarray(b[k])
+        if x.shape != y.shape:
+            raise AssertionError(f"{k}: shape {x.shape} != {y.shape}")
+        if np.array_equal(x, y):
+            continue
+        identical = False
+        d = float(np.abs(x.astype(np.float64) - y).max())
+        worst_abs = max(worst_abs, d)
+        worst_rel = max(worst_rel, d / max(float(np.abs(y).max()), 1e-30))
+    return {"n_arrays": len(b), "bit_identical": identical,
+            "max_abs_diff": worst_abs, "max_rel_diff": worst_rel}
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -400,24 +565,35 @@ def main(argv=None) -> int:
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
     has_h5py = importable("h5py")
+    # the plain one-hot versions' "highest" product needs full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
     emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
-          "h5py": has_h5py, "ninja": importable("ninja")})
+          "h5py": has_h5py, "ninja": importable("ninja"),
+          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32})
     device = torch.device("cuda", 0)
 
-    # --- build -----------------------------------------------------------
+    # --- build: one nvcc per source, all started together ----------------
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mpassit_tpu_torch.ops import gather_kernel as gk
+    from mpassit_tpu_torch.ops import onehot_kernel as ok
     from mpassit_tpu_torch.ops import packed_kernel as pk
 
+    mods = (pk, ok, gk)
     t0 = time.perf_counter()
-    pk.build()
-    emit({"phase": "build", "source": os.path.relpath(pk.SOURCE, HERE),
-          "so": os.path.relpath(pk.BUILD_INFO["so"], HERE),
-          "nvcc_s": pk.BUILD_INFO["seconds"],
-          "build_s": time.perf_counter() - t0})
-    for line in pk.BUILD_INFO["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    with ThreadPoolExecutor(len(mods)) as ex:
+        for f in [ex.submit(m.build) for m in mods]:
+            f.result()
+    emit({"phase": "build", "build_s": time.perf_counter() - t0,
+          "sources": [{"source": os.path.relpath(m.SOURCE, HERE),
+                       "so": os.path.relpath(m.BUILD_INFO["so"], HERE),
+                       "nvcc_s": m.BUILD_INFO["seconds"]} for m in mods]})
+    for m in mods:
+        for line in m.BUILD_INFO["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {os.path.basename(m.SOURCE)}:", line.strip())
 
     # --- inputs ----------------------------------------------------------
     shutil.rmtree(WORK, ignore_errors=True)
@@ -431,11 +607,15 @@ def main(argv=None) -> int:
                                  if k != "namelist"}})
     print(info["namelist"], end="")
 
-    # --- main path -------------------------------------------------------
+    # --- the main path, once per apply route ------------------------------
+    import gc
+
+    import numpy as np
+
     from mpassit_tpu_torch.ops import matmul_apply
     from mpassit_tpu_torch.run import pipeline
 
-    arts, applies = [], {"packed": 0, "slab_groups": 0}
+    arts, calls = [], []
     run_pipeline = pipeline.run_pipeline
 
     def observed_run(cfg, device, dtype=None):
@@ -443,28 +623,30 @@ def main(argv=None) -> int:
         arts.append(art)
         return art
 
-    def count(cls, key, groups):
+    def record(cls, kind):
         orig = cls.apply_np
 
         def wrapped(self, src, *a, **kw):
-            applies[key] += groups(self, src)
+            blocks = src if isinstance(src, (list, tuple)) else [src]
+            C = sum(1 if np.ndim(b) == 1 else np.shape(b)[1]
+                    for b in blocks)
+            calls.append((kind, C + (-C) % matmul_apply.LANE))
             return orig(self, src, *a, **kw)
         cls.apply_np = wrapped
 
-    def slab_groups(rg, src):
-        import numpy as np
-
-        blocks = src if isinstance(src, (list, tuple)) else [src]
-        C = sum(1 if np.ndim(b) == 1 else np.shape(b)[1] for b in blocks)
-        Cp = C + (-C) % matmul_apply.LANE
-        return -(-Cp // matmul_apply.FETCH)
-
     pipeline.run_pipeline = observed_run
-    count(matmul_apply.PackedSlabRegridder, "packed", lambda rg, s: 1)
-    count(matmul_apply.SlabMatmulRegridder, "slab_groups", slab_groups)
-    # where interp_data goes: host->device source upload, kernel launches,
-    # device->host strip fetch, each bracketed by synchronizes
-    split = {"upload_s": 0.0, "kernel_s": 0.0, "fetch_s": 0.0}
+    record(matmul_apply.PackedSlabRegridder, "packed")
+    record(matmul_apply.SlabMatmulRegridder, "slab")
+    # where interp_data goes: host->device source upload, one-hot operator
+    # build, gather-layout build, kernel launches, device->host strip
+    # fetch, each bracketed by synchronizes
+    split = {}
+    split_keys = {"_src_to_device": "upload_s", "_build_A_T": "build_A_s",
+                  "_chunk_slab_cached": "chunk_layout_s",
+                  "packed_apply": "kernel_s", "onehot_apply": "kernel_s",
+                  "onehot_apply_packed": "kernel_s",
+                  "packed_gather_apply": "kernel_s",
+                  "_fetch_strips": "fetch_s"}
 
     def timed(name, key):
         fn = getattr(matmul_apply, name)
@@ -474,19 +656,15 @@ def main(argv=None) -> int:
             t = time.perf_counter()
             r = fn(*a, **kw)
             torch.cuda.synchronize(device)
-            split[key] += time.perf_counter() - t
+            split[key] = split.get(key, 0.0) + time.perf_counter() - t
             return r
         setattr(matmul_apply, name, wrapped)
 
-    timed("_src_to_device", "upload_s")
-    timed("packed_apply", "kernel_s")
-    timed("_fetch_strips", "fetch_s")
-    captured = {}
+    for name, key in split_keys.items():
+        timed(name, key)
     if not has_h5py:
-        # the NetCDF4 output writer needs h5py; capture the result instead
-        def capture(path, cfg, grid, data, res):
-            captured["res"] = res
-        pipeline.write_output = capture
+        # the NetCDF4 output writer needs h5py; the result is kept instead
+        pipeline.write_output = lambda path, cfg, grid, data, res: None
         print(json.dumps({"output_write":
                           "captured in memory: h5py not installed"}))
         # the shared classic-format reader (mpassit_tpu/io/nc4.py::_decode)
@@ -498,62 +676,97 @@ def main(argv=None) -> int:
         print(json.dumps({"h5py_shim": "h5py.Empty stub for the classic "
                           "reader's attribute decode"}))
     os.environ["MPASSIT_PLATFORM"] = "cuda"
-    torch.cuda.reset_peak_memory_stats(device)
-    pk.LAUNCHES = 0
-    pk.PLAIN_CALLS = 0
-    t0 = time.perf_counter()
-    rc = pipeline.main([nml])
-    t_main = time.perf_counter() - t0
-    launches, plain_calls = pk.LAUNCHES, pk.PLAIN_CALLS
-    art = arts[0] if arts else None
-    stages = art.timings.stages if art else {}
-    expected = applies["packed"] + applies["slab_groups"]
-    emit({"phase": "main_path", "rc": rc, "t_s": t_main,
-          "stages_s": stages, "interp_data_split_s": split,
-          "launches": launches,
-          "expected_launches": expected, "applies": applies,
-          "plain_calls": plain_calls,
-          "peak_device_gb": torch.cuda.max_memory_allocated(device) / 1e9,
-          "out_shape": [art.grid.ny, art.grid.nx] if art else None,
-          "reduced": reduced})
-    if rc != 0 or art is None:
-        raise SystemExit(f"main path failed: rc={rc}")
-    if launches != expected or launches == 0 or plain_calls != 0:
-        raise SystemExit("main path did not run every apply through the "
-                         f"kernel: launches={launches} expected={expected} "
-                         f"plain_calls={plain_calls}")
+    route_launches, default_art = {}, None
+    for phase, (route, switches) in ROUTES.items():
+        for k in ("MPASSIT_ELL_KERNEL", "MPASSIT_GATHER_KERNEL"):
+            os.environ.pop(k, None)
+        os.environ.update(switches)
+        arts.clear()
+        calls.clear()
+        split.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        _zero_counters()
+        t0 = time.perf_counter()
+        rc = pipeline.main([nml])
+        t_main = time.perf_counter() - t0
+        launches, plain_calls = _counters()
+        art = arts[0] if arts else None
+        expected = expected_launches(route, calls, matmul_apply.FETCH)
+        emit({"phase": phase, "switches": switches, "rc": rc, "t_s": t_main,
+              "stages_s": art.timings.stages if art else {},
+              "interp_data_split_s": dict(split), "launches": launches,
+              "expected_launches": expected, "applies": list(calls),
+              "plain_calls": plain_calls,
+              "peak_device_gb": torch.cuda.max_memory_allocated(device) / 1e9,
+              "out_shape": [art.grid.ny, art.grid.nx] if art else None,
+              "reduced": reduced})
+        if rc != 0 or art is None:
+            raise SystemExit(f"{phase} failed: rc={rc}")
+        own = [k for k, n in expected.items() if n and k != "packed_apply"]
+        if (launches != expected or any(plain_calls.values())
+                or not any(launches.values())
+                or (route != "ell" and (launches["packed_apply"] or not own))):
+            raise SystemExit(
+                f"{phase} did not run every apply through the route's "
+                f"kernels: launches={launches} expected={expected} "
+                f"plain_calls={plain_calls}")
+        route_launches[route] = launches
+        # the run's device tensors (operators, one-hot A) go before the next
+        art.regridders.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    # --- check -----------------------------------------------------------
-    t0 = time.perf_counter()
-    errs = check_outputs(art, 4000, args.seed)
-    written = None
-    if has_h5py:
-        from mpassit_tpu.io.nc4 import open_dataset
+        # --- check ------------------------------------------------------
+        t0 = time.perf_counter()
+        errs = check_outputs(art, 4000, args.seed)
+        written = None
+        if has_h5py and route == "ell":
+            from mpassit_tpu.io.nc4 import open_dataset
 
-        with open_dataset(art.cfg.output_file) as f:
-            names = set(f.var_names())
-            missing = [n for n in errs if n not in names]
-            if missing:
-                raise AssertionError(f"output file lacks {missing}")
-            u = f.read_var("U")
-            if u.shape != (1, NZ, art.grid.ny, art.grid.nx + 1):
-                raise AssertionError(f"U in file has shape {u.shape}")
-            written = os.path.getsize(art.cfg.output_file)
-    emit({"phase": "check", "t_s": time.perf_counter() - t0,
-          "tol_rel": TOL_REL, "max_rel_err": max(errs.values()),
-          "n_vars": len(errs), "output_bytes": written,
-          "per_var_max_rel_err": errs})
+            with open_dataset(art.cfg.output_file) as f:
+                names = set(f.var_names())
+                missing = [n for n in errs if n not in names]
+                if missing:
+                    raise AssertionError(f"output file lacks {missing}")
+                u = f.read_var("U")
+                if u.shape != (1, NZ, art.grid.ny, art.grid.nx + 1):
+                    raise AssertionError(f"U in file has shape {u.shape}")
+                written = os.path.getsize(art.cfg.output_file)
+        check = {"phase": "check", "route": route,
+                 "t_s": time.perf_counter() - t0, "tol_rel": TOL_REL,
+                 "max_rel_err": max(errs.values()), "n_vars": len(errs),
+                 "output_bytes": written, "per_var_max_rel_err": errs}
+        if default_art is None:
+            default_art = art
+        else:
+            diff = compare_results(art.result, default_art.result)
+            check["vs_default_route"] = diff
+            ok_route = (diff["bit_identical"] if route == "gather"
+                        else diff["max_rel_diff"] <= TOL_ROUTE)
+            check["vs_default_ok"] = ok_route
+            if not ok_route:
+                emit(check)
+                raise AssertionError(f"{phase} differs from the default "
+                                     f"route: {diff}")
+            art.result = art.data = None
+        emit(check)
+        del art
+    for k in ("MPASSIT_ELL_KERNEL", "MPASSIT_GATHER_KERNEL"):
+        os.environ.pop(k, None)
 
     # --- kernel vs plain ---------------------------------------------------
-    cases, summary = kernel_vs_plain(art, device, args.seed)
-    del art, arts[:], captured
+    cases, summary = kernel_vs_plain(default_art, device, args.seed)
+    del default_art, arts[:]
     shutil.rmtree(WORK, ignore_errors=True)
 
+    route_of = {"packed_apply": "ell", "onehot_apply_packed": "onehot",
+                "onehot_apply": "onehot", "packed_gather_apply": "gather"}
     emit({"kernels": [{
-        "name": "packed_apply", "route": "cuda",
-        "source": "mpassit_tpu_torch/csrc/packed_apply.cu",
-        "replaces": "mpassit_tpu/ops/pallas_matmul.py:482",
-        "launches": launches, **summary}]})
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": route_launches[route_of[name]][name],
+        **summary[name]} for name, (source, replaces) in KERNELS.items()]})
     print(nvidia_smi())
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -4,18 +4,27 @@ The target grid is cut into 32x32 tiles. Per tile, the host pack
 (``_pack_union``, copied verbatim from the JAX package) lists the sorted
 union of source rows the tile's ELL entries reference (``slab_idx``, W
 rows) and re-expresses each entry as a local row index into that list
-(``loc``). An apply is then::
+(``loc``). Three apply routes, chosen when a regridder is built from the
+JAX package's switches:
 
-    slab = src[slab_idx]                       (one row gather on device)
-    out  = packed_apply(slab, loc, w, ...)     (the Hopper kernel)
+- default: ``slab = src[slab_idx]`` (one row gather on the device), then
+  ``packed_apply`` (ops/packed_kernel.py), fed the ELL arrays directly, f32;
+- ``MPASSIT_ELL_KERNEL=0``, the one-hot route: the same gather, then
+  ``onehot_apply`` / ``onehot_apply_packed`` (ops/onehot_kernel.py) with
+  the f32 one-hot operator ``A`` that ``_build_A_T`` builds on the device,
+  computing the TPU's term set of ``precision``;
+- ``MPASSIT_GATHER_KERNEL=1``, the in-kernel-gather route:
+  ``packed_gather_apply`` (ops/gather_kernel.py) reads the slab rows from
+  the source through the chunked-run layout of ``_chunk_slab``; no slab is
+  held in device memory. ``MPASSIT_ELL_KERNEL=0`` wins over it.
 
-``packed_apply`` (ops/packed_kernel.py) writes the row-major
-``(nty*32, ntx*32, Cp)`` output directly. On a CUDA device it launches the
-kernel; on the CPU it runs the kernel's plain PyTorch version. The JAX
-package's one-hot matmul formulation, its bf16 operand splits and its
-VMEM/Mosaic routing knobs are TPU devices with no counterpart here: the
-``precision`` argument is validated and kept for the namelist's sake, and
-every value runs the same f32 arithmetic.
+Every kernel writes the row-major ``(nty*32, ntx*32, Cp)`` output
+directly. On a CUDA device the wrappers launch their kernels; on the CPU
+they run the kernels' plain PyTorch versions. No route gives way to
+another. The JAX package's VMEM checks (``ell_fits_vmem``,
+``gather_fits_vmem``, ``fused_available``) and ``MPASSIT_APPLY_BACKEND``
+have no counterpart: the switches alone pick the route. On the default
+and gather routes every ``precision`` runs the same f32 arithmetic.
 
 Both engines take host sources as one (n_src, C) array or as a list of
 column blocks, assembled on the device without a host concatenation.
@@ -30,6 +39,8 @@ import numpy as np
 import torch
 
 from ..parallel.multihost import fetch_to_host
+from .gather_kernel import CH, packed_gather_apply
+from .onehot_kernel import onehot_apply, onehot_apply_packed
 from .packed_kernel import _validate_rotate, packed_apply
 
 TY = 32
@@ -47,8 +58,56 @@ W_STEP = 8          # slab width quantum
 #: (33, 33) window = 1089 rows of the mass grid)
 W_CAP = 2048
 
-#: accepted apply_precision values (all run f32 multiply-adds here)
+#: accepted apply_precision values (the one-hot route computes each one's
+#: term set; the default and gather routes run f32 multiply-adds)
 PRECISIONS = ("split_bf16", "split6_bf16", "highest")
+
+
+def _route_from_env() -> str:
+    """"ell" (default), "onehot" (MPASSIT_ELL_KERNEL=0) or "gather"
+    (MPASSIT_GATHER_KERNEL=1), read when a regridder is built, as the JAX
+    package reads them (matmul_apply.py:563, :645)."""
+    if os.environ.get("MPASSIT_ELL_KERNEL", "1") == "0":
+        return "onehot"
+    if os.environ.get("MPASSIT_GATHER_KERNEL", "0") == "1":
+        return "gather"
+    return "ell"
+
+
+def _build_A_T(loc, w, n_tiles, w_width):
+    """(T, K) local indices + f32 weights, device tensors -> the
+    (n_tiles, W, TILE) f32 one-hot sums A[t, r, p] = sum of w[p, k] over
+    the k with loc[p, k] == r (the JAX package's _build_A_T).
+
+    The K entries are added in order k = 0..K-1, each by one
+    non-accumulating index_put_ into a preallocated A: within one k no
+    (tile, row, point) repeats, so the sum order is JAX's and the result
+    deterministic. Memory beyond A is a few (T,) index vectors."""
+    T, K = loc.shape
+    dev = loc.device
+    A = torch.zeros((n_tiles, w_width, TILE), dtype=torch.float32,
+                    device=dev)
+    flat = A.view(-1)
+    pt = torch.arange(T, device=dev)
+    base = (pt // TILE) * (w_width * TILE) + pt % TILE
+    for k in range(K):
+        idx = base + loc[:, k].long() * TILE
+        flat.index_put_((idx,), flat[idx] + w[:, k].float())
+    return A
+
+
+def _per_method(a, n_tiles, Ks, dtype, device):
+    """(n_tiles, TILE*sum(Ks)) host array, K-concatenated per point ->
+    one (n_tiles, K, TILE) device tensor per method (the kernels'
+    layout)."""
+    a3 = np.asarray(a).reshape(n_tiles, TILE, sum(Ks))
+    out, koff = [], 0
+    for K in Ks:
+        out.append(torch.from_numpy(np.ascontiguousarray(
+            a3[:, :, koff:koff + K].transpose(0, 2, 1)).astype(dtype))
+            .to(device))
+        koff += K
+    return tuple(out)
 
 
 def _tile_block(arr_g, nty, ntx, K):
@@ -119,6 +178,67 @@ def _pack_union(idx, w, ny, nx, n_src):
     return slab_idx, loc, loc_w, W, nty, ntx, n_tiles
 
 
+def _chunk_slab(slab_idx, loc, loc_w, W):
+    """Chunked-run layout for the in-kernel gather: per tile, the sorted
+    unique source rows cluster into contiguous runs under Morton ordering
+    (measured: ~20 runs / ~25 8-row chunks per tile at the 2.6M-cell
+    W=80 load; ~7 at CONUS W=16). Each run becomes ceil(L/CH) fixed-size
+    (CH, Cp) DMA copies from src into a per-tile slab scratch whose slots
+    are CH-padded per run — the whole slab gather is ~25 descriptor
+    issues per tile instead of a separate XLA gather pass over HBM.
+
+    Chunk starts are CH-ALIGNED source rows (stored divided by CH —
+    Mosaic can only prove the (8, 128)-tiled HBM slice legal when the
+    row offset is an explicit multiple of 8), so each run's copies cover
+    [floor(r0/CH)*CH, r0+L) and its rows land at slot base + (r0 - a0)
+    + i.
+
+    Returns (ch_src (n_tiles, NC) int32 chunk starts DIVIDED BY CH (pad
+    chunks point at row 0 and land in slots no weight references), loc8
+    (n_tiles, TILE*K) remapped local indices, W8 = NC*CH)."""
+    n_tiles, W_ = slab_idx.shape
+    lw = np.asarray(loc_w).reshape(n_tiles, -1)
+    lc = np.asarray(loc).reshape(n_tiles, -1).astype(np.int64)
+    used = np.zeros((n_tiles, W_), bool)
+    # set-only-True scatter: loc has duplicates (several ELL entries per
+    # row, plus w=0 pads clipped to position 0) — put_along_axis would
+    # let a later pad overwrite a real row's True
+    sel = lw != 0
+    flat = (np.arange(n_tiles)[:, None] * W_ + lc)[sel]
+    used.reshape(-1)[flat] = True
+    chunks = []
+    pos_maps = np.zeros((n_tiles, W_), np.int64)
+    for t in range(n_tiles):
+        rows_t = np.asarray(slab_idx[t])
+        u = used[t]
+        # slab rows are sorted unique; runs = consecutive-row groups
+        upos = np.nonzero(u)[0]
+        ch_t = []
+        if len(upos):
+            rows = rows_t[upos]
+            brk = np.nonzero(np.diff(rows) != 1)[0]
+            starts = np.concatenate(([0], brk + 1))
+            ends = np.concatenate((brk + 1, [len(rows)]))
+            pm = np.zeros(W_, np.int64)
+            for s0, e0 in zip(starts, ends):
+                base = len(ch_t) * CH
+                r0 = int(rows[s0])
+                a0 = (r0 // CH) * CH          # aligned coverage start
+                for a in range(a0, int(rows[e0 - 1]) + 1, CH):
+                    ch_t.append(a // CH)
+                pm[upos[s0:e0]] = base + (r0 - a0) + np.arange(e0 - s0)
+            pos_maps[t] = pm
+        chunks.append(ch_t)
+    NC = max(1, max(len(c) for c in chunks))
+    ch_src = np.zeros((n_tiles, NC), np.int32)
+    for t, c in enumerate(chunks):
+        ch_src[t, :len(c)] = c
+    loc8 = np.take_along_axis(pos_maps, lc, axis=1)
+    W8 = NC * CH
+    ldt = np.uint8 if W8 <= 256 else (np.int16 if W8 <= 32767 else np.int32)
+    return ch_src, loc8.astype(ldt), W8
+
+
 #: pack-cache layout version — bump when the cached entry changes
 _PACK_VERSION = 4
 
@@ -174,8 +294,35 @@ def _pack_union_cached(idx_w_fn, ny, nx, n_src, cache_dir=None,
     return out
 
 
-def _src_to_device(src, Cp, device):
-    """Host source -> (n_src, Cp) f32 device tensor, zero-padded columns.
+def _chunk_slab_cached(slab_idx, loc, loc_w, W, dst_shape, cache_dir=None,
+                       ell_fps=None):
+    """Disk-cached ``_chunk_slab`` -> (ch_src, loc8, W8), its own entry
+    (``torchgather_``) beside the pack's, keyed like it. Computed only on
+    the gather route's first use: it is a per-tile Python loop."""
+    from mpassit_tpu.diskcache import load_arrays, save_arrays
+
+    path = None
+    if cache_dir and ell_fps:
+        os.makedirs(cache_dir, exist_ok=True)
+        path = _pack_cache_path(cache_dir, ell_fps, *dst_shape).replace(
+            "torchpack_", f"torchgather{CH}_")
+        hit = load_arrays(path)
+        if hit is not None:
+            try:
+                meta, arrs = hit
+                return arrs["ch_src"], arrs["loc8"], int(meta["W8"])
+            except KeyError:
+                pass  # incomplete entry: rebuild
+    ch_src, loc8, W8 = _chunk_slab(np.asarray(slab_idx), loc, loc_w, W)
+    if path is not None:
+        save_arrays(path, {"W8": W8}, {"ch_src": ch_src, "loc8": loc8})
+    return ch_src, loc8, W8
+
+
+def _src_to_device(src, Cp, device, pad_rows=0):
+    """Host source -> (n_src + pad_rows, Cp) f32 device tensor, zero-padded
+    columns (and rows: the gather route's chunks may read CH rows past
+    n_src).
 
     Accepts one (n_src, C) array OR a list of column blocks summing to C:
     blocks are copied one at a time into a preallocated device buffer, so
@@ -186,14 +333,15 @@ def _src_to_device(src, Cp, device):
         if src.ndim == 1:
             src = src[:, None]
         src = [src]
-    buf = torch.zeros((np.asarray(src[0]).shape[0], Cp), dtype=torch.float32,
+    n_src = np.asarray(src[0]).shape[0]
+    buf = torch.zeros((n_src + pad_rows, Cp), dtype=torch.float32,
                       device=device)
     off = 0
     for b in src:
         b = np.ascontiguousarray(np.asarray(b, dtype=np.float32))
         if b.ndim == 1:
             b = b[:, None]
-        buf[:, off:off + b.shape[1]] = torch.from_numpy(b).to(device)
+        buf[:n_src, off:off + b.shape[1]] = torch.from_numpy(b).to(device)
         off += b.shape[1]
     return buf
 
@@ -211,9 +359,86 @@ def _fetch_strips(o, C, ny, nx, lo0, root_only, out, strip_sink):
             out[:, :, lo:lo + cb_eff] = fetched
 
 
-class SlabMatmulRegridder:
-    """One tile-packed ELL operator, applied by the packed kernel with one
-    column range.
+class _Operator:
+    """What both regridders share: the route, the lazily built device
+    operands of each route (ELL arrays, one-hot operators, the gather
+    layout) and the source upload."""
+
+    def __init__(self, device, precision, cache_dir, fps, Ks, slab_idx,
+                 loc, loc_w):
+        if precision not in PRECISIONS:
+            raise ValueError(f"precision must be one of {PRECISIONS}")
+        self.precision = precision
+        self.device = torch.device(device)
+        self.cache_dir = cache_dir
+        #: "ell" (default), "onehot" or "gather", see _route_from_env
+        self.route = _route_from_env()
+        self._fps, self._Ks = fps, list(Ks)
+        self._slab_idx_host = slab_idx
+        self._loc_host, self._w_host = loc, loc_w
+        self.slab_idx = torch.tensor(np.asarray(slab_idx).reshape(-1),
+                                     device=self.device)
+        self._locws = self._As = self._gather = None
+        self.W8 = None
+
+    def _ell_dev(self):
+        """Per-method (n_tiles, K, TILE) loc/w device tensors."""
+        if self._locws is None:
+            self._locws = tuple(
+                _per_method(a, self.n_tiles, self._Ks, dt, self.device)
+                for a, dt in ((self._loc_host, np.int32),
+                              (self._w_host, np.float32)))
+        return self._locws
+
+    @property
+    def As(self):
+        """Per-method f32 one-hot operators (n_tiles, W, TILE) over the
+        slab, built on the device on first use and kept (one-hot route)."""
+        if self._As is None:
+            loc3 = np.asarray(self._loc_host).reshape(
+                self.n_tiles, TILE, sum(self._Ks))
+            w3 = np.asarray(self._w_host).reshape(loc3.shape)
+            self._As, koff = [], 0
+            for K in self._Ks:
+                loc_m, w_m = (
+                    torch.tensor(a[:, :, koff:koff + K].reshape(-1, K),
+                                 dtype=dt, device=self.device)
+                    for a, dt in ((loc3, torch.int64), (w3, torch.float32)))
+                self._As.append(_build_A_T(loc_m, w_m, self.n_tiles, self.W))
+                koff += K
+        return self._As
+
+    def _gather_dev(self):
+        """(ch_src, locs8, ws) device tensors of the gather route; the
+        chunked-run layout is computed (or loaded) on first use."""
+        if self._gather is None:
+            ch_src, loc8, self.W8 = _chunk_slab_cached(
+                self._slab_idx_host, self._loc_host, self._w_host, self.W,
+                self.dst_shape, cache_dir=self.cache_dir, ell_fps=self._fps)
+            self._gather = (
+                torch.tensor(np.asarray(ch_src), dtype=torch.int32,
+                             device=self.device),
+                _per_method(loc8, self.n_tiles, self._Ks, np.int32,
+                            self.device),
+                _per_method(self._w_host, self.n_tiles, self._Ks,
+                            np.float32, self.device))
+        return self._gather
+
+    def _slab(self, src_dev):
+        """(n_src[+CH], Cp) -> (n_tiles, W, Cp): the one row gather."""
+        return torch.index_select(src_dev, 0, self.slab_idx).view(
+            self.n_tiles, self.W, src_dev.shape[1])
+
+    def _upload(self, src, Cp):
+        """Host source -> device, with the CH pad rows the gather route's
+        last chunks read."""
+        return _src_to_device(src, Cp, self.device,
+                              pad_rows=CH if self.route == "gather" else 0)
+
+
+class SlabMatmulRegridder(_Operator):
+    """One tile-packed ELL operator, applied with one column range by the
+    kernel of the route (see the module docstring).
 
     Raises ValueError when a tile references more than W_CAP unique source
     rows (the caller falls back to ops.apply.Regridder)."""
@@ -223,50 +448,45 @@ class SlabMatmulRegridder:
 
     def __init__(self, ell, device, precision: str = "highest",
                  cache_dir=None):
-        if precision not in PRECISIONS:
-            raise ValueError(f"precision must be one of {PRECISIONS}")
-        self.precision = precision
-        self.device = torch.device(device)
-        self.cache_dir = cache_dir
         if len(ell.dst_shape) != 2:
             raise ValueError("SlabMatmulRegridder needs a 2-D dst_shape")
         ny, nx = ell.dst_shape
-        self._K = ell.idx.shape[1]
+        K = ell.idx.shape[1]
         self.n_src = ell.n_src
         self.dst_shape = (ny, nx)
-        (slab_idx, self._loc_host, self._w_host, self.W, self.nty, self.ntx,
+        fps = (ell.fingerprint(),) if cache_dir else None
+        (slab_idx, loc, loc_w, self.W, self.nty, self.ntx,
          self.n_tiles) = _pack_union_cached(
             lambda: (np.asarray(ell.idx, dtype=np.int64),
                      np.asarray(ell.w, dtype=np.float64)),
-            ny, nx, self.n_src, cache_dir=cache_dir,
-            ell_fps=(ell.fingerprint(),) if cache_dir else None)
-        self.slab_idx = torch.tensor(np.asarray(slab_idx).reshape(-1),
-                                     device=self.device)
-        self._locw_dev = None
+            ny, nx, self.n_src, cache_dir=cache_dir, ell_fps=fps)
+        super().__init__(device, precision, cache_dir, fps, (K,), slab_idx,
+                         loc, loc_w)
         self.duplication = self.n_tiles * self.W / max(ell.n_src, 1)
 
-    def _ell_dev(self):
-        """loc/w in the kernel's (n_tiles, K, TILE) layout, on device."""
-        if self._locw_dev is None:
-            lw = []
-            for a, dt in ((self._loc_host, np.int32),
-                          (self._w_host, np.float32)):
-                a3 = np.ascontiguousarray(
-                    np.asarray(a).reshape(self.n_tiles, TILE, self._K)
-                    .transpose(0, 2, 1)).astype(dt)
-                lw.append(torch.from_numpy(a3).to(self.device))
-            self._locw_dev = tuple(lw)
-        return self._locw_dev
-
-    def _slab(self, src_dev):
-        """(n_src, Cp) -> (n_tiles, W, Cp): the one row gather."""
-        return torch.index_select(src_dev, 0, self.slab_idx).view(
-            self.n_tiles, self.W, src_dev.shape[1])
+    @property
+    def A(self):
+        """The f32 one-hot operator (n_tiles, W, TILE), built on first
+        use (one-hot route)."""
+        return self.As[0]
 
     def _apply(self, slab):
-        loc, w = self._ell_dev()
-        return packed_apply(slab, (loc,), (w,), ranges=((0, slab.shape[2]),),
+        """(n_tiles, W, Cp) slab -> (nyp, nxp, Cp), default or one-hot."""
+        if self.route == "onehot":
+            return onehot_apply(self.A, slab, nty=self.nty, ntx=self.ntx,
+                                precision=self.precision)
+        locs, ws = self._ell_dev()
+        return packed_apply(slab, locs, ws, ranges=((0, slab.shape[2]),),
                             nty=self.nty, ntx=self.ntx)
+
+    def _gather_apply(self, src_dev):
+        """(n_src + CH, Cp) source -> (nyp, nxp, Cp), slab rows gathered
+        in the kernel."""
+        ch, locs, ws = self._gather_dev()
+        Cp = src_dev.shape[1]
+        return packed_gather_apply(src_dev, ch, locs, ws, W8=self.W8,
+                                   ranges=((0, Cp),), nty=self.nty,
+                                   ntx=self.ntx)
 
     def __call__(self, src_dev):
         """src (n_src, C) tensor on the operator's device. Returns the
@@ -275,6 +495,9 @@ class SlabMatmulRegridder:
             src_dev = src_dev[:, None]
         C = src_dev.shape[1]
         pad = (-C) % LANE
+        if self.route == "gather":
+            src_dev = torch.nn.functional.pad(src_dev.float(), (0, pad, 0, CH))
+            return self._gather_apply(src_dev)[:, :, :C]
         if pad:
             src_dev = torch.nn.functional.pad(src_dev, (0, pad))
         return self._apply(self._slab(src_dev.float()))[:, :, :C]
@@ -282,7 +505,10 @@ class SlabMatmulRegridder:
     def apply_np(self, src, root_only: bool = False, strip_sink=None):
         """Host-array apply: one slab gather, then one kernel launch per
         FETCH-column group, fetched to the host in CB strips before the
-        next group allocates (device residency is one group's output).
+        next group allocates (device residency is one group's output). On
+        the gather route a source of at most FETCH columns is one gather
+        kernel launch, as in the JAX package; a wider one takes the
+        default route.
 
         ``src`` may be a list of column blocks. With ``strip_sink``, each
         fetched (ny, nx, cb) strip is handed to ``strip_sink(col_lo,
@@ -294,35 +520,43 @@ class SlabMatmulRegridder:
         squeeze = not is_blocks and np.ndim(src) == 1
         C = sum(ncols(b) for b in src) if is_blocks else ncols(src)
         Cp = C + ((-C) % LANE)
-        slab = self._slab(_src_to_device(src, Cp, self.device))
         ny, nx = self.dst_shape
         out = None if strip_sink is not None else np.empty((ny, nx, C),
                                                            np.float32)
-        for g in range(0, Cp, FETCH):
-            gw = min(FETCH, Cp - g)
-            o = self._apply(slab[:, :, g:g + gw].contiguous())
-            _fetch_strips(o, C, ny, nx, g, root_only, out, strip_sink)
-            del o
+        src_dev = self._upload(src, Cp)
+        if self.route == "gather" and Cp <= FETCH:
+            o = self._gather_apply(src_dev)
+            _fetch_strips(o, C, ny, nx, 0, root_only, out, strip_sink)
+        else:
+            slab = self._slab(src_dev)
+            del src_dev
+            for g in range(0, Cp, FETCH):
+                gw = min(FETCH, Cp - g)
+                o = self._apply(slab[:, :, g:g + gw].contiguous())
+                _fetch_strips(o, C, ny, nx, g, root_only, out, strip_sink)
+                del o
         if strip_sink is not None:
             return None
         return out[:, :, 0] if squeeze else out
 
 
-class PackedSlabRegridder:
+class PackedSlabRegridder(_Operator):
     """Several ELL operators over the SAME source row space and target
     grid, applied as ONE kernel pass writing ONE packed output.
 
     ``ells_and_cols``: list of (ELLWeights, n_cols) in column order; the
     apply consumes one (n_src, sum(n_cols)) source laid out the same way.
     The per-tile slab is the union of the methods' unique source rows; the
-    kernel writes each method's sum into its column range.
+    kernel of the route (see the module docstring) writes each method's
+    sum into its column range.
 
     ``rotate_spec``: optional (windows, cosa, sina) — windows is a tuple of
     (cu, cv, n) packed-column triples (u levels at [cu, cu+n), v at
     [cv, cv+n)); cosa/sina are (ny, nx) host arrays. The Q4 wind rotation
-    is applied to those columns inside the kernel. A window that does not
-    fit one 256-column sub-chunk raises ValueError, as in the JAX package,
-    so that both packages take the same rotation route.
+    is applied to those columns inside the kernel, on every route. A
+    window that does not fit one 256-column sub-chunk raises ValueError,
+    as in the JAX package, so that both packages take the same rotation
+    route.
     """
 
     #: apply_np accepts a list of column blocks (device-side assembly)
@@ -330,11 +564,6 @@ class PackedSlabRegridder:
 
     def __init__(self, ells_and_cols, device, precision: str = "highest",
                  rotate_spec=None, cache_dir=None):
-        if precision not in PRECISIONS:
-            raise ValueError(f"precision must be one of {PRECISIONS}")
-        self.precision = precision
-        self.device = torch.device(device)
-        self.cache_dir = cache_dir
         ells = [e for e, _ in ells_and_cols]
         self.col_counts = [int(c) for _, c in ells_and_cols]
         if len({e.n_src for e in ells}) != 1:
@@ -357,28 +586,21 @@ class PackedSlabRegridder:
             _validate_rotate(tuple(rotate_spec[0]), tuple(self.ranges),
                              self.Cp)
 
-        # union slab over the K-concatenation of all methods
-        self._Ks = [e.idx.shape[1] for e in ells]
-
+        # union slab over the K-concatenation of all methods; per-method
+        # loc/w slices over it follow the K-concatenation order
         def _cat():
             return (np.concatenate(
                         [np.asarray(e.idx, np.int64) for e in ells], axis=1),
                     np.concatenate(
                         [np.asarray(e.w, np.float64) for e in ells], axis=1))
 
+        fps = tuple(e.fingerprint() for e in ells) if cache_dir else None
         (slab_idx, loc, loc_w, self.W, self.nty, self.ntx,
          self.n_tiles) = _pack_union_cached(
-            _cat, ny, nx, self.n_src, cache_dir=cache_dir,
-            ell_fps=(tuple(e.fingerprint() for e in ells)
-                     if cache_dir else None))
-        self.slab_idx = torch.tensor(np.asarray(slab_idx).reshape(-1),
-                                     device=self.device)
-        # per-method loc/w slices over the union slab (following the
-        # K-concatenation order); the kernel-layout device arrays are
-        # derived lazily from these
-        self._loc3 = loc.reshape(self.n_tiles, TILE, sum(self._Ks))
-        self._w3 = loc_w.reshape(self.n_tiles, TILE, sum(self._Ks))
-        self._locws = None
+            _cat, ny, nx, self.n_src, cache_dir=cache_dir, ell_fps=fps)
+        super().__init__(device, precision, cache_dir, fps,
+                         [e.idx.shape[1] for e in ells], slab_idx, loc,
+                         loc_w)
 
         # in-kernel wind rotation (quirk Q4): cosa/sina tile-blocked
         # (n_tiles, TY, TX) and padded with the IDENTITY rotation (cosa=1,
@@ -404,33 +626,21 @@ class PackedSlabRegridder:
     def Cp(self) -> int:
         return self.C_total + ((-self.C_total) % LANE)
 
-    def _ell_dev(self):
-        """Per-method (n_tiles, K, TILE) loc/w device tensors."""
-        if self._locws is None:
-            locs, ws = [], []
-            koff = 0
-            for K in self._Ks:
-                lm = np.ascontiguousarray(
-                    np.asarray(self._loc3[:, :, koff:koff + K])
-                    .transpose(0, 2, 1)).astype(np.int32)
-                wm = np.ascontiguousarray(
-                    np.asarray(self._w3[:, :, koff:koff + K])
-                    .transpose(0, 2, 1)).astype(np.float32)
-                locs.append(torch.from_numpy(lm).to(self.device))
-                ws.append(torch.from_numpy(wm).to(self.device))
-                koff += K
-            self._locws = (tuple(locs), tuple(ws))
-        return self._locws
-
     def _apply_padded(self, src_dev):
-        """(n_src, Cp) device source -> (nyp, nxp, Cp); columns past
-        C_total are zeroed by the kernel."""
-        slab = torch.index_select(src_dev, 0, self.slab_idx).view(
-            self.n_tiles, self.W, self.Cp)
+        """(n_src[+CH], Cp) device source -> (nyp, nxp, Cp) by the route's
+        kernel; columns past C_total are zeroed by the kernel."""
+        rot = dict(ranges=tuple(self.ranges), nty=self.nty, ntx=self.ntx,
+                   rotate=self.rotate, cosa=self._cosa_t, sina=self._sina_t)
+        if self.route == "gather":
+            ch, locs, ws = self._gather_dev()
+            return packed_gather_apply(src_dev, ch, locs, ws, W8=self.W8,
+                                       **rot)
+        slab = self._slab(src_dev)
+        if self.route == "onehot":
+            return onehot_apply_packed(self.As, slab,
+                                       precision=self.precision, **rot)
         locs, ws = self._ell_dev()
-        return packed_apply(slab, locs, ws, ranges=tuple(self.ranges),
-                            nty=self.nty, ntx=self.ntx, rotate=self.rotate,
-                            cosa=self._cosa_t, sina=self._sina_t)
+        return packed_apply(slab, locs, ws, **rot)
 
     def __call__(self, src_dev):
         """src (n_src, C_total) tensor on the operator's device, columns
@@ -440,7 +650,8 @@ class PackedSlabRegridder:
                 f"packed source has {src_dev.shape[1]} columns, operator "
                 f"expects {self.C_total}")
         pad = self.Cp - self.C_total
-        src_dev = torch.nn.functional.pad(src_dev.float(), (0, pad))
+        rows = CH if self.route == "gather" else 0
+        src_dev = torch.nn.functional.pad(src_dev.float(), (0, pad, 0, rows))
         return self._apply_padded(src_dev)[:, :, :self.C_total]
 
     def apply_np(self, src, root_only: bool = False, strip_sink=None):
@@ -451,6 +662,6 @@ class PackedSlabRegridder:
         ny, nx = self.dst_shape
         out = None if strip_sink is not None else np.empty(
             (ny, nx, self.C_total), np.float32)
-        o = self._apply_padded(_src_to_device(src, self.Cp, self.device))
+        o = self._apply_padded(self._upload(src, self.Cp))
         _fetch_strips(o, self.C_total, ny, nx, 0, root_only, out, strip_sink)
         return out

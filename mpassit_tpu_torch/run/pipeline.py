@@ -9,8 +9,9 @@ package's own, imported; only the device-bound layers are ported.
 The device is explicit: ``run_pipeline(cfg, device)`` places every
 operator and apply on ``device``; ``main`` takes it from
 ``MPASSIT_PLATFORM`` (``cuda`` by default, ``cpu`` for the tests). On a
-CUDA device every packed and slab apply launches the Hopper kernel
-(ops/packed_kernel.py); on the CPU they run its plain PyTorch version.
+CUDA device every packed and slab apply launches a Hopper kernel of the
+apply route that ``MPASSIT_ELL_KERNEL``/``MPASSIT_GATHER_KERNEL`` pick
+(ops/matmul_apply.py); on the CPU they run its plain PyTorch version.
 """
 
 from __future__ import annotations

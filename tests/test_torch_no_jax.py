@@ -1,7 +1,9 @@
 """The port never imports JAX: a fresh interpreter imports
-mpassit_tpu_torch.run.pipeline, runs a tiny pipeline on the CPU, and finds
-neither ``jax`` nor the JAX package's device-bound modules in
-sys.modules; and no source file of the package names jax in an import."""
+mpassit_tpu_torch.run.pipeline and the kernel modules, runs a tiny
+pipeline on the CPU on each apply route (default, MPASSIT_ELL_KERNEL=0,
+MPASSIT_GATHER_KERNEL=1), and finds neither ``jax`` nor the JAX package's
+device-bound modules in sys.modules; and no source file of the package
+names jax in an import."""
 
 import ast
 import os
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 torch.set_num_threads(2)
 from mpassit_tpu_torch.run.pipeline import run_pipeline
+from mpassit_tpu_torch.ops import gather_kernel, onehot_kernel
 from mpassit_tpu.config import Config
 from mpassit_tpu.mesh.synthetic import synthetic_voronoi_mesh
 from mpassit_tpu_torch.testing import (
@@ -55,8 +58,17 @@ cfg = Config.from_dict({
     "nx": 21, "ny": 16, "dx": 200e3, "dy": 200e3, "ref_lat": 38.5,
     "ref_lon": -97.5, "truelat1": 38.5, "stand_lon": -97.5,
     "varlist_dir": d})
-art = run_pipeline(cfg, device="cpu")
-assert np.isfinite(art.result.u).all() and art.result.u.shape == (15, 21, 3)
+counts = []
+for env in ({}, {"MPASSIT_ELL_KERNEL": "0"}, {"MPASSIT_GATHER_KERNEL": "1"}):
+    os.environ.pop("MPASSIT_ELL_KERNEL", None)
+    os.environ.pop("MPASSIT_GATHER_KERNEL", None)
+    os.environ.update(env)
+    art = run_pipeline(cfg, device="cpu")
+    assert np.isfinite(art.result.u).all()
+    assert art.result.u.shape == (15, 21, 3)
+    counts.append((sum(onehot_kernel.PLAIN_CALLS.values()),
+                   gather_kernel.PLAIN_CALLS))
+assert counts[0] == (0, 0) and counts[1][0] > 0 and counts[2][1] > 0, counts
 bound = [m for m in sys.modules
          if m == "jax" or m.startswith(("jax.", "jaxlib"))
          or m.startswith(("mpassit_tpu.ops", "mpassit_tpu.run",

@@ -1,7 +1,9 @@
 """The port's pipeline against the JAX pipeline on the synthetic case of
 tests/test_pipeline.make_case: every RegridResult array (f32 within
 1e-5 * max(1, max|ref|); f64 rtol 1e-12), the output file's variables and
-attributes, the classic-format (CDF-2) input path chip_smoke.py uses on
+attributes, the one-hot and in-kernel-gather routes under their switches
+(one-hot: 1e-6 * max(1, max|ref|), since JAX's CPU path forms the same
+bf16 terms; gather: bit for bit the port's default route), the classic-format (CDF-2) input path chip_smoke.py uses on
 machines without h5py, the CLI's exit codes and device rule, and the
 options that are not ported yet."""
 
@@ -17,6 +19,8 @@ import torch
 
 from mpassit_tpu.io.nc4 import open_dataset
 from mpassit_tpu.run.pipeline import run_pipeline as jax_run
+from mpassit_tpu_torch.ops import gather_kernel as gk
+from mpassit_tpu_torch.ops import onehot_kernel as ok
 from mpassit_tpu_torch.ops import packed_kernel as pk
 from mpassit_tpu_torch.run import pipeline as tpipe
 from mpassit_tpu_torch.testing import (
@@ -50,13 +54,13 @@ def _arrays(res):
     return out
 
 
-def _assert_results_close(got, ref, rtol=None):
+def _assert_results_close(got, ref, rtol=None, scale=1e-5):
     a, b = _arrays(got), _arrays(ref)
     assert list(a) == list(b)
     for k in a:
         assert a[k].shape == b[k].shape, k
         if rtol is None:
-            bound = 1e-5 * max(1.0, float(np.abs(b[k]).max()))
+            bound = scale * max(1.0, float(np.abs(b[k]).max()))
             err = float(np.abs(np.asarray(a[k], np.float64) - b[k]).max())
             assert err <= bound, (k, err, bound)
         else:
@@ -85,6 +89,45 @@ def test_f32_results_match_jax(f32_runs):
     # and the vertex field, each one kernel-shaped call (plain on the CPU)
     assert n_plain == 4
     assert set(got.regridders) == set(ref.regridders)
+
+
+def test_onehot_route_matches_jax(tmp_path, monkeypatch):
+    """MPASSIT_ELL_KERNEL=0 under both packages: the port runs the one-hot
+    kernels' plain versions (one packed apply; the EDGE1/EDGE2 restaggers
+    and the vertex field, one single-method call each) and nothing else."""
+    monkeypatch.setenv("MPASSIT_ELL_KERNEL", "0")
+    mesh, cfg, _, _ = make_case(tmp_path)
+    assert cfg.apply_precision == "split6_bf16"
+    ref = jax_run(cfg, jnp.float32)
+    cfg.output_file = str(tmp_path / "out_torch.nc")
+    p0, o0, g0 = pk.PLAIN_CALLS, dict(ok.PLAIN_CALLS), gk.PLAIN_CALLS
+    got = tpipe.run_pipeline(cfg, device="cpu")
+    assert pk.PLAIN_CALLS == p0 and gk.PLAIN_CALLS == g0
+    assert ok.PLAIN_CALLS == {
+        "onehot_apply": o0["onehot_apply"] + 3,
+        "onehot_apply_packed": o0["onehot_apply_packed"] + 1}
+    _assert_results_close(got.result, ref.result, scale=1e-6)
+
+
+def test_gather_route_matches_jax_and_default(tmp_path, monkeypatch,
+                                              f32_runs):
+    """MPASSIT_GATHER_KERNEL=1: the JAX package gathers in the kernel only
+    on a TPU, so its CPU run is its default; the port runs the gather
+    kernel's plain version for every apply, bit for bit its default
+    route."""
+    *_, default, _, _ = f32_runs
+    monkeypatch.setenv("MPASSIT_GATHER_KERNEL", "1")
+    mesh, cfg, _, _ = make_case(tmp_path)
+    ref = jax_run(cfg, jnp.float32)
+    cfg.output_file = str(tmp_path / "out_torch.nc")
+    p0, o0, g0 = pk.PLAIN_CALLS, dict(ok.PLAIN_CALLS), gk.PLAIN_CALLS
+    got = tpipe.run_pipeline(cfg, device="cpu")
+    assert gk.PLAIN_CALLS == g0 + 4
+    assert pk.PLAIN_CALLS == p0 and ok.PLAIN_CALLS == o0
+    _assert_results_close(got.result, ref.result)
+    a, b = _arrays(got.result), _arrays(default.result)
+    for k in b:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
 def test_output_file_matches_jax(f32_runs):
@@ -279,6 +322,23 @@ def test_cuda_platform_without_gpu_is_an_error(tmp_path, monkeypatch,
     nml = tmp_path / "namelist.input"
     _write_namelist(cfg, nml)
     monkeypatch.delenv("MPASSIT_PLATFORM", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert tpipe.main([str(nml)]) == 231
+    assert "NO CUDA DEVICE" in capsys.readouterr().err
+    assert not os.path.exists(cfg.output_file)
+
+
+@pytest.mark.parametrize("switch", ["MPASSIT_ELL_KERNEL=0",
+                                    "MPASSIT_GATHER_KERNEL=1"])
+def test_cuda_platform_without_gpu_is_an_error_on_every_route(
+        tmp_path, monkeypatch, capsys, switch):
+    """The route switches pick kernels, never a device: without a CUDA
+    device the default platform still fails on either route."""
+    mesh, cfg, _, _ = make_case(tmp_path)
+    nml = tmp_path / "namelist.input"
+    _write_namelist(cfg, nml)
+    monkeypatch.delenv("MPASSIT_PLATFORM", raising=False)
+    monkeypatch.setenv(*switch.split("="))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert tpipe.main([str(nml)]) == 231
     assert "NO CUDA DEVICE" in capsys.readouterr().err

@@ -3,7 +3,13 @@ the host pack byte for byte, and SlabMatmulRegridder /
 PackedSlabRegridder ``apply_np`` (rotation, block-list sources,
 strip_sink, root_only) against the JAX classes with backend="xla" and
 backend="pallas" (interpret mode). Tolerance: rtol 2e-6, atol 2e-5 (the
-R10 'highest' class, ~2e-7 max rel err of either arithmetic vs f64)."""
+R10 'highest' class, ~2e-7 max rel err of either arithmetic vs f64).
+
+The routes the switches pick: under MPASSIT_ELL_KERNEL=0 both regridders
+against the JAX classes under the same switch, for each precision, at
+rtol 1e-6 of the largest |ref| (the same terms summed in another order);
+under MPASSIT_GATHER_KERNEL=1 bit for bit the port's default route; the
+plain-call counters show which kernel's plain version ran."""
 
 import dataclasses
 import os
@@ -19,7 +25,9 @@ from mpassit_tpu.weights.bilinear import bilinear_cell_weights
 from mpassit_tpu.weights.conservative import conservative_weights
 from mpassit_tpu.weights.ell import ELLWeights
 from mpassit_tpu.weights.nearest import nearest_weights
+from mpassit_tpu_torch.ops import gather_kernel as gk
 from mpassit_tpu_torch.ops import matmul_apply as tm
+from mpassit_tpu_torch.ops import onehot_kernel as ok
 from mpassit_tpu_torch.ops import packed_kernel as pk
 
 from test_weights import coarse_lambert_grid
@@ -236,3 +244,154 @@ def test_cpu_applies_never_launch(problem):
     launches, plain = pk.LAUNCHES, pk.PLAIN_CALLS
     rg.apply_np(src)
     assert pk.LAUNCHES == launches and pk.PLAIN_CALLS == plain + 2
+
+
+# ------------------------------------------------ one-hot and gather routes
+
+PRECISIONS = ("highest", "split_bf16", "split6_bf16")
+
+
+def _plain_counts():
+    return pk.PLAIN_CALLS, dict(ok.PLAIN_CALLS), gk.PLAIN_CALLS
+
+
+def _close(got, ref):
+    """rtol 1e-6 of the largest |ref|: the one-hot route computes the JAX
+    package's terms in another order of f32 sums."""
+    np.testing.assert_allclose(got, ref, rtol=1e-6,
+                               atol=1e-6 * float(np.abs(ref).max()))
+
+
+def _slab_ell(mesh):
+    ny, nx = 33, 34       # forces tile padding on both axes
+    lat = np.linspace(-25, 25, ny)[:, None] + np.zeros((1, nx))
+    lon = np.linspace(-40, 40, nx)[None, :] + np.zeros((ny, 1))
+    ell = bilinear_cell_weights(mesh, lat.ravel(), lon.ravel())
+    return dataclasses.replace(ell, dst_shape=(ny, nx))
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_onehot_route_slab_matches_jax(small_mesh, monkeypatch, backend,
+                                       precision):
+    """MPASSIT_ELL_KERNEL=0: the JAX package applies its prestacked one-hot
+    A (fused_apply under backend="pallas", _tile_matmul under "xla"); the
+    port builds the f32 A and runs onehot_apply's plain version."""
+    monkeypatch.setenv("MPASSIT_ELL_KERNEL", "0")
+    ell = _slab_ell(small_mesh)
+    ny, nx = ell.dst_shape
+    src = np.random.default_rng(6).standard_normal(
+        (small_mesh.ncells, 3)).astype(np.float32)
+    jr = jm.SlabMatmulRegridder(ell, precision=precision, backend=backend)
+    ref = jr.apply_np(src)
+    ref_dev = np.asarray(jr(src))[:ny, :nx]
+    rg = tm.SlabMatmulRegridder(ell, CPU, precision=precision)
+    assert rg.route == "onehot"
+    (p0, o0, g0), launches = _plain_counts(), dict(ok.LAUNCHES)
+    got = rg.apply_np(src)
+    dev = rg(torch.from_numpy(src))
+    assert pk.PLAIN_CALLS == p0 and gk.PLAIN_CALLS == g0
+    assert ok.PLAIN_CALLS == {"onehot_apply": o0["onehot_apply"] + 2,
+                              "onehot_apply_packed":
+                                  o0["onehot_apply_packed"]}
+    assert ok.LAUNCHES == launches
+    assert rg.A.shape == (rg.n_tiles, rg.W, 1024)
+    _close(got, ref)
+    _close(dev[:ny, :nx].numpy(), ref_dev)
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_onehot_route_packed_matches_jax(problem, monkeypatch, backend,
+                                         precision):
+    """MPASSIT_ELL_KERNEL=0 on the packed regridder, with the in-kernel
+    rotation (post-unblock on the JAX xla backend)."""
+    monkeypatch.setenv("MPASSIT_ELL_KERNEL", "0")
+    mesh, _, ells = problem
+    cols = [5, 3, 2]
+    cosa, sina = _rotation(ells[0])
+    spec = (((0, 2, 2),), cosa, sina)
+    src = np.random.default_rng(12).standard_normal(
+        (mesh.ncells, sum(cols))).astype(np.float32)
+    jr = jm.PackedSlabRegridder(list(zip(ells, cols)), precision=precision,
+                                backend=backend, rotate_spec=spec)
+    ref = jr.apply_np(src)
+    ref_dev = np.asarray(jr(src))
+    rg = tm.PackedSlabRegridder(list(zip(ells, cols)), CPU,
+                                precision=precision, rotate_spec=spec)
+    assert rg.route == "onehot"
+    p0, o0, g0 = _plain_counts()
+    got = rg.apply_np(src)
+    dev = rg(torch.from_numpy(src)).numpy()
+    assert pk.PLAIN_CALLS == p0 and gk.PLAIN_CALLS == g0
+    assert ok.PLAIN_CALLS == {"onehot_apply": o0["onehot_apply"],
+                              "onehot_apply_packed":
+                                  o0["onehot_apply_packed"] + 2}
+    assert [A.shape for A in rg.As] == [(rg.n_tiles, rg.W, 1024)] * 3
+    _close(got, ref)
+    _close(dev, ref_dev[:dev.shape[0]])
+
+
+def test_onehot_wins_over_gather(problem, monkeypatch):
+    _, _, (ell, _, _) = problem
+    monkeypatch.setenv("MPASSIT_GATHER_KERNEL", "1")
+    monkeypatch.setenv("MPASSIT_ELL_KERNEL", "0")
+    assert tm.SlabMatmulRegridder(ell, CPU).route == "onehot"
+    monkeypatch.setenv("MPASSIT_ELL_KERNEL", "1")
+    assert tm.SlabMatmulRegridder(ell, CPU).route == "gather"
+    monkeypatch.delenv("MPASSIT_GATHER_KERNEL")
+    assert tm.SlabMatmulRegridder(ell, CPU).route == "ell"
+
+
+@pytest.mark.parametrize("C", [3, 600])
+def test_gather_route_slab_equals_default(problem, monkeypatch, tmp_path, C):
+    """MPASSIT_GATHER_KERNEL=1: bit for bit the default route. apply_np
+    gathers in the kernel up to FETCH columns and takes the default route
+    beyond (600 columns pad to 640 > FETCH); __call__ always gathers in
+    the kernel. The chunk layout is cached as its own entry."""
+    mesh, _, (ell, _, _) = problem
+    src = np.random.default_rng(C).standard_normal(
+        (mesh.ncells, C)).astype(np.float32)
+    base = tm.SlabMatmulRegridder(ell, CPU)
+    ref, ref_dev = base.apply_np(src), base(torch.from_numpy(src))
+    monkeypatch.setenv("MPASSIT_GATHER_KERNEL", "1")
+    rg = tm.SlabMatmulRegridder(ell, CPU, cache_dir=str(tmp_path))
+    p0, o0, g0 = _plain_counts()
+    got = rg.apply_np(src)
+    wide = C + (-C) % tm.LANE > tm.FETCH
+    assert gk.PLAIN_CALLS == g0 + (0 if wide else 1)
+    assert pk.PLAIN_CALLS == p0 + (2 if wide else 0)
+    np.testing.assert_array_equal(got, ref)
+    assert torch.equal(rg(torch.from_numpy(src)), ref_dev)
+    assert gk.PLAIN_CALLS == g0 + (1 if wide else 2)
+    assert ok.PLAIN_CALLS == o0
+    assert any(n.startswith("torchgather") for n in os.listdir(tmp_path))
+    again = tm.SlabMatmulRegridder(ell, CPU, cache_dir=str(tmp_path))
+    ch, locs8, _ = again._gather_dev()
+    assert again.W8 == rg.W8 and torch.equal(ch, rg._gather_dev()[0])
+    assert torch.equal(locs8[0], rg._gather_dev()[1][0])
+
+
+def test_gather_route_packed_equals_default(problem, monkeypatch):
+    """The packed regridder's gather route, with the in-kernel rotation,
+    bit for bit the default route (apply_np, block lists, __call__)."""
+    mesh, _, ells = problem
+    cols = [280, 12, 8]
+    cosa, sina = _rotation(ells[0], seed=4)
+    spec = (((0, 55, 55),), cosa, sina)
+    src = np.random.default_rng(13).standard_normal(
+        (mesh.ncells, sum(cols))).astype(np.float32)
+    base = tm.PackedSlabRegridder(list(zip(ells, cols)), CPU,
+                                  rotate_spec=spec)
+    ref, ref_dev = base.apply_np(src), base(torch.from_numpy(src))
+    monkeypatch.setenv("MPASSIT_GATHER_KERNEL", "1")
+    rg = tm.PackedSlabRegridder(list(zip(ells, cols)), CPU, rotate_spec=spec)
+    assert rg.route == "gather" and rg.rotate == ((0, 55, 55),)
+    p0, o0, g0 = _plain_counts()
+    np.testing.assert_array_equal(rg.apply_np(src), ref)
+    np.testing.assert_array_equal(
+        rg.apply_np([src[:, :100], src[:, 100:]]), ref)
+    assert torch.equal(rg(torch.from_numpy(src)), ref_dev)
+    assert gk.PLAIN_CALLS == g0 + 3
+    assert pk.PLAIN_CALLS == p0 and ok.PLAIN_CALLS == o0
+    assert rg.W8 >= rg.W and rg.W8 % tm.CH == 0
