@@ -9,7 +9,7 @@ device-bound modules. Phases, each printing one JSON line:
 
 - device: the card (name and power limit from nvidia-smi), torch and CUDA
   versions, whether h5py and ninja are importable;
-- build: compiles the three sources of mpassit_tpu_torch/csrc/ with nvcc,
+- build: compiles the five sources of mpassit_tpu_torch/csrc/ with nvcc,
   one process each, started together;
 - inputs: a synthetic global MPAS mesh of 655,362 cells (the size of
   MPAS's x1.655362 30-km mesh), nz=55, nsoil=4, with seeded smooth fields
@@ -36,8 +36,24 @@ device-bound modules. Phases, each printing one JSON line:
   pack of this mesh and grid at Cp=1024 with the (0, 55, 55) rotate window
   (with and without checksum) and the EDGE1 restagger pack (W ~ 1096,
   Cp=128); the one-hot kernels for each precision; the gather kernel also
-  bit for bit against packed_apply; median times by CUDA events after a
-  warm-up.
+  bit for bit against packed_apply; the ELL-built split_bf16 variants v1
+  and v2 (CC 128 and 256) on the bilinear operator at 512 columns, within
+  1e-6 of max|plain| and v1 within 1e-6 of v2; median times by CUDA events
+  after a warm-up;
+- write_wall: the store-only kernel at the packed output shape (Cp=1024)
+  bit for bit against its plain version over the whole output, its write
+  GB/s, and packed_apply's time as a multiple of it (the measured write
+  roofline of the apply);
+- kernel_variants: the tool mpassit_tpu_torch.tools.kernel_variants
+  (v0 = packed_apply, v1, v2 at CC 128 and 256, the write wall at 512
+  columns) on this mesh's cached bilinear operator at the full target
+  width, with its spot checks (v1 vs v2 within 1e-6, v1 vs v0 within 3e-5
+  of max|v0|).
+
+The counters of every kernel are zeroed just before each phase that drives
+a path (the three main-path routes, write_wall, kernel_variants) and read
+just after; the kernels line takes each kernel's launches from the phase
+that runs it.
 
 Then the kernels line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed phase exits non-zero.
@@ -315,6 +331,7 @@ def kernel_vs_plain(art, device, seed):
     from mpassit_tpu_torch.ops import gather_kernel as gk
     from mpassit_tpu_torch.ops import onehot_kernel as ok
     from mpassit_tpu_torch.ops import packed_kernel as pk
+    from mpassit_tpu_torch.ops import variant_kernels as vk
     from mpassit_tpu_torch.ops.matmul_apply import (
         CH,
         PackedSlabRegridder,
@@ -356,7 +373,8 @@ def kernel_vs_plain(art, device, seed):
         torch.cuda.empty_cache()
         ok_ = (out["finite"] and out["max_rel_err"] <= TOL_KERNEL
                and out.get("checksum_max_rel_err", 0.0) <= 1e-5
-               and out.get("equal_to_packed_apply", True))
+               and out.get("equal_to_packed_apply", True)
+               and out.get("vs_v2_ok", True))
         out["ok"] = ok_
         cases.append(out)
         emit({"phase": "kernel_vs_plain", **out})
@@ -436,6 +454,33 @@ def kernel_vs_plain(art, device, seed):
     cover(edge, 128, dict(ranges=((0, 128),)), "edge1_restagger")
     del edge
     torch.cuda.empty_cache()
+
+    # the ELL-built split_bf16 variants on the bilinear operator at 512
+    # columns, the shape of the kernel_variants phase
+    bil = SlabMatmulRegridder(W["bilinear"], device, precision="split_bf16",
+                              cache_dir=cfg.weights_cache_dir)
+    slab, _ = operands(bil, 512)
+    (loc,), (wt,) = bil._ell_dev()
+    nt = dict(nty=bil.nty, ntx=bil.ntx)
+
+    def vs_v2(got):
+        v2 = vk.ell_split_apply_v2(loc, wt, slab, **nt)
+        rel = float((got - v2).abs().max()) / max(float(got.abs().max()),
+                                                  1e-30)
+        return {"W": bil.W, "vs_v2_max_rel_err": rel,
+                "vs_v2_bit_identical": bool(torch.equal(got, v2)),
+                "vs_v2_ok": rel <= TOL_KERNEL}
+    run_case("ell_split_apply_v1", "bilinear_cp512",
+             lambda: vk.ell_split_apply_v1(loc, wt, slab, **nt),
+             lambda: vk.ell_split_apply_v1_plain(loc, wt, slab, **nt), False,
+             extra=vs_v2)
+    for cc in vk.V2_CC:
+        run_case("ell_split_apply_v2", f"bilinear_cp512_cc{cc}",
+                 lambda: vk.ell_split_apply_v2(loc, wt, slab, CC=cc, **nt),
+                 lambda: vk.ell_split_apply_v2_plain(loc, wt, slab, **nt),
+                 False)
+    del bil, slab, loc, wt
+    torch.cuda.empty_cache()
     summary = {}
     for c in cases:
         s = summary.setdefault(c["kernel"], {"max_abs_err": 0.0})
@@ -443,6 +488,84 @@ def kernel_vs_plain(art, device, seed):
         if "ms" in c and "ms" not in s:
             s.update(ms=c["ms"], plain_ms=c["plain_ms"], ms_case=c["case"])
     return cases, summary
+
+
+# ------------------------------------------------------ write wall ----
+
+def write_wall_phase(device, nty, ntx, packed_ms, seed):
+    """The store-only kernel at the packed output shape (Cp = 1024): its
+    launches counted alone, its time, and its whole output against the
+    plain version bit for bit. Returns (the phase's launches, the kernel's
+    summary)."""
+    import numpy as np
+    import torch
+
+    from mpassit_tpu_torch.ops import write_wall as ww
+
+    Cp = 1024
+    row = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (1, 1, Cp)).astype(np.float32)).to(device)
+    _zero_counters()
+    got = ww.write_wall(row, nty=nty, ntx=ntx)
+    torch.cuda.synchronize()
+    ms = _time_ms(torch, lambda: ww.write_wall(row, nty=nty, ntx=ntx), 10)
+    launches, plain_calls = _counters()
+    ref = ww.write_wall_plain(row, nty=nty, ntx=ntx)
+    equal = bool(torch.equal(got, ref))
+    finite = bool(torch.isfinite(got).all())
+    del got, ref
+    torch.cuda.empty_cache()
+    plain_ms = _time_ms(torch, lambda: ww.write_wall_plain(row, nty=nty,
+                                                          ntx=ntx), 5)
+    nbytes = nty * 32 * ntx * 32 * Cp * 4
+    rec = {"phase": "write_wall", "shape": [nty * 32, ntx * 32, Cp],
+           "out_bytes": nbytes, "ms": ms, "plain_ms": plain_ms,
+           "write_gb_per_s": nbytes / ms / 1e6,
+           "plain_gb_per_s": nbytes / plain_ms / 1e6,
+           "bit_identical_to_plain": equal, "finite": finite,
+           "packed_apply_ms": packed_ms,
+           "packed_apply_over_wall": packed_ms / ms,
+           "packed_apply_share_of_write_rate": ms / packed_ms,
+           "launches": launches, "plain_calls": plain_calls}
+    rec["ok"] = equal and finite and _owed_only(launches, plain_calls,
+                                                ("write_wall",))
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"write_wall phase failed: {rec}")
+    return launches, {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                      "ms_case": f"packed_conus_cp{Cp}"}
+
+
+def kernel_variants_phase(art, device, seed, reduced):
+    """The kernel-variants tool in-process on this mesh's bilinear
+    operator (weights from the run's cache) at the full target width and
+    512 columns. Returns the phase's launches."""
+    from mpassit_tpu_torch.run.pipeline import build_weights
+    from mpassit_tpu_torch.tools.kernel_variants import run_variants
+
+    W = build_weights(art.cfg, art.mesh, art.grid, art.routing)
+    _zero_counters()
+    t0 = time.perf_counter()
+    res = run_variants(W["bilinear"], device, cols=512, seed=seed,
+                       cache_dir=art.cfg.weights_cache_dir)
+    t_s = time.perf_counter() - t0
+    launches, plain_calls = _counters()
+    ok_ = res["ok"] and _owed_only(
+        launches, plain_calls, ("packed_apply", "ell_split_apply_v1",
+                                "ell_split_apply_v2", "write_wall"))
+    emit({"phase": "kernel_variants", "t_s": t_s, **res, "ok": ok_,
+          "launches": launches, "plain_calls": plain_calls,
+          "reduced": reduced + [f"ncells {art.mesh.ncells} < 2600000"]})
+    if not ok_:
+        raise AssertionError("kernel_variants phase failed")
+    return launches
+
+
+def _owed_only(launches, plain_calls, owed):
+    """Every kernel in ``owed`` launched, no other, no plain call."""
+    return (all(launches[k] > 0 for k in owed)
+            and not any(n for k, n in launches.items() if k not in owed)
+            and not any(plain_calls.values()))
 
 
 # ----------------------------------------------------------------- main ----
@@ -457,7 +580,18 @@ KERNELS = {
                      "mpassit_tpu/ops/pallas_matmul.py:119"),
     "packed_gather_apply": ("mpassit_tpu_torch/csrc/packed_gather.cu",
                             "mpassit_tpu/ops/pallas_matmul.py:386"),
+    "write_wall": ("mpassit_tpu_torch/csrc/write_wall.cu", "bench.py:238"),
+    "ell_split_apply_v1": ("mpassit_tpu_torch/csrc/ell_split_apply.cu",
+                           "tools/kernel_variants.py:34"),
+    "ell_split_apply_v2": ("mpassit_tpu_torch/csrc/ell_split_apply.cu",
+                           "tools/kernel_variants.py:85"),
 }
+#: kernel -> the phase whose launches the kernels line reports
+PHASE_OF = {"packed_apply": "ell", "onehot_apply_packed": "onehot",
+            "onehot_apply": "onehot", "packed_gather_apply": "gather",
+            "write_wall": "write_wall",
+            "ell_split_apply_v1": "kernel_variants",
+            "ell_split_apply_v2": "kernel_variants"}
 #: phase -> (route, switches)
 ROUTES = {
     "main_path": ("ell", {}),
@@ -472,20 +606,27 @@ def _counters():
     from mpassit_tpu_torch.ops import gather_kernel as gk
     from mpassit_tpu_torch.ops import onehot_kernel as ok
     from mpassit_tpu_torch.ops import packed_kernel as pk
+    from mpassit_tpu_torch.ops import variant_kernels as vk
+    from mpassit_tpu_torch.ops import write_wall as ww
 
     return ({"packed_apply": pk.LAUNCHES, **ok.LAUNCHES,
-             "packed_gather_apply": gk.LAUNCHES},
+             "packed_gather_apply": gk.LAUNCHES, "write_wall": ww.LAUNCHES,
+             **vk.LAUNCHES},
             {"packed_apply": pk.PLAIN_CALLS, **ok.PLAIN_CALLS,
-             "packed_gather_apply": gk.PLAIN_CALLS})
+             "packed_gather_apply": gk.PLAIN_CALLS,
+             "write_wall": ww.PLAIN_CALLS, **vk.PLAIN_CALLS})
 
 
 def _zero_counters():
     from mpassit_tpu_torch.ops import gather_kernel as gk
     from mpassit_tpu_torch.ops import onehot_kernel as ok
     from mpassit_tpu_torch.ops import packed_kernel as pk
+    from mpassit_tpu_torch.ops import variant_kernels as vk
+    from mpassit_tpu_torch.ops import write_wall as ww
 
     pk.LAUNCHES = pk.PLAIN_CALLS = gk.LAUNCHES = gk.PLAIN_CALLS = 0
-    for d in (ok.LAUNCHES, ok.PLAIN_CALLS):
+    ww.LAUNCHES = ww.PLAIN_CALLS = 0
+    for d in (ok.LAUNCHES, ok.PLAIN_CALLS, vk.LAUNCHES, vk.PLAIN_CALLS):
         d.update(dict.fromkeys(d, 0))
 
 
@@ -580,8 +721,10 @@ def main(argv=None) -> int:
     from mpassit_tpu_torch.ops import gather_kernel as gk
     from mpassit_tpu_torch.ops import onehot_kernel as ok
     from mpassit_tpu_torch.ops import packed_kernel as pk
+    from mpassit_tpu_torch.ops import variant_kernels as vk
+    from mpassit_tpu_torch.ops import write_wall as ww
 
-    mods = (pk, ok, gk)
+    mods = (pk, ok, gk, ww, vk)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(mods)) as ex:
         for f in [ex.submit(m.build) for m in mods]:
@@ -756,17 +899,26 @@ def main(argv=None) -> int:
     for k in ("MPASSIT_ELL_KERNEL", "MPASSIT_GATHER_KERNEL"):
         os.environ.pop(k, None)
 
-    # --- kernel vs plain ---------------------------------------------------
+    # --- kernel vs plain, the write wall, the kernel variants --------------
     cases, summary = kernel_vs_plain(default_art, device, args.seed)
-    del default_art, arts[:]
+    grid = default_art.grid
+    phase_launches = dict(route_launches)
+    phase_launches["write_wall"], summary["write_wall"] = write_wall_phase(
+        device, -(-grid.ny // 32), -(-grid.nx // 32),
+        summary["packed_apply"]["ms"], args.seed)
+    phase_launches["kernel_variants"] = kernel_variants_phase(
+        default_art, device, args.seed, reduced)
+    del default_art, arts[:], grid
     shutil.rmtree(WORK, ignore_errors=True)
 
-    route_of = {"packed_apply": "ell", "onehot_apply_packed": "onehot",
-                "onehot_apply": "onehot", "packed_gather_apply": "gather"}
-    emit({"kernels": [{
+    kernels = [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "launches": route_launches[route_of[name]][name],
-        **summary[name]} for name, (source, replaces) in KERNELS.items()]})
+        "launches": phase_launches[PHASE_OF[name]][name],
+        **summary[name]} for name, (source, replaces) in KERNELS.items()]
+    emit({"kernels": kernels})
+    idle = [k["name"] for k in kernels if not k["launches"] > 0]
+    if idle:
+        raise SystemExit(f"kernels not launched on their phase: {idle}")
     print(nvidia_smi())
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -15,7 +15,8 @@
 //       split_bf16:  Ah Sh + Ah Sl + Al Sh
 //       split6_bf16: A0 S0 + A0 S1 + A1 S0 + A0 S2 + A1 S1 + A2 S0
 //     with b0 = bf16_rn(x), b1 = bf16_rn(x - b0), b2 = bf16_rn(x - b0 - b1)
-//     (hi = b0, lo = b1), as matmul_apply._split_hilo/_split_3way round.
+//     (hi = b0, lo = b1), as matmul_apply._split_hilo/_split_3way round
+//     (bf16_terms.cuh, shared with ell_split_apply.cu).
 //
 // The TPU streams A prestacked into 3 or 6 bf16 copies because the MXU
 // reads bf16 operands; here A stays f32 in device memory (a third of the
@@ -44,9 +45,7 @@
 // are IEEE. Offsets are 64-bit. The checksum is reduced in a fixed order,
 // without atomics.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "bf16_terms.cuh"
 
 #define TY 32
 #define TX 32
@@ -76,49 +75,6 @@ __device__ __forceinline__ int method_of(const Ops& O, int c) {
   for (int m = 0; m < O.nm; ++m)
     if (c >= O.c0[m] && c < O.c1[m]) return m;
   return -1;
-}
-
-__device__ __forceinline__ float bf16_rn(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// x -> its parts for precision PREC (0 highest, 1 split_bf16, 2 split6_bf16)
-template <int PREC>
-__device__ __forceinline__ float4 split(float x) {
-  if (PREC == 0) return make_float4(x, 0.0f, 0.0f, 0.0f);
-  const float b0 = bf16_rn(x);
-  const float r1 = __fsub_rn(x, b0);
-  const float b1 = bf16_rn(r1);
-  if (PREC == 1) return make_float4(b0, b1, 0.0f, 0.0f);
-  return make_float4(b0, b1, bf16_rn(__fsub_rn(r1, b1)), 0.0f);
-}
-
-// acc + the term set of PREC for one contraction row, in the TPU stack order
-template <int PREC>
-__device__ __forceinline__ float terms(float acc, const float4& a,
-                                       const float4& s) {
-  if (PREC == 0) return __fmaf_rn(a.x, s.x, acc);
-  acc = __fmaf_rn(a.x, s.x, acc);
-  acc = __fmaf_rn(a.x, s.y, acc);
-  acc = __fmaf_rn(a.y, s.x, acc);
-  if (PREC == 2) {
-    acc = __fmaf_rn(a.x, s.z, acc);
-    acc = __fmaf_rn(a.y, s.y, acc);
-    acc = __fmaf_rn(a.z, s.x, acc);
-  }
-  return acc;
-}
-
-template <int PREC>
-__device__ __forceinline__ void accumulate(float (&acc)[PB],
-                                           const float4 (&a_s)[WB][PB],
-                                           const float* __restrict__ col,
-                                           int nw, int Cp) {
-  for (int wi = 0; wi < nw; ++wi) {
-    const float4 s = split<PREC>(__ldg(col + (int64_t)wi * Cp));
-#pragma unroll
-    for (int pi = 0; pi < PB; ++pi) acc[pi] = terms<PREC>(acc[pi], a_s[wi][pi], s);
-  }
 }
 
 template <int PREC>
@@ -172,8 +128,8 @@ onehot_apply_kernel(const float* __restrict__ slab, float* __restrict__ out,
       }
       __syncthreads();
       const float* rows = slab_t + (int64_t)w0 * Cp;
-      if (own) accumulate<PREC>(acc, a_s, rows + c, nw, Cp);
-      if (part) accumulate<PREC>(acc2, a_s, rows + cpart, nw, Cp);
+      if (own) accumulate<PREC, PB>(acc, a_s, rows + c, nw, Cp);
+      if (part) accumulate<PREC, PB>(acc2, a_s, rows + cpart, nw, Cp);
     }
   }
 

@@ -1,7 +1,8 @@
 """The port never imports JAX: a fresh interpreter imports
-mpassit_tpu_torch.run.pipeline and the kernel modules, runs a tiny
-pipeline on the CPU on each apply route (default, MPASSIT_ELL_KERNEL=0,
-MPASSIT_GATHER_KERNEL=1), and finds neither ``jax`` nor the JAX package's
+mpassit_tpu_torch.run.pipeline, the kernel modules and the kernel-variants
+tool, runs a tiny pipeline on the CPU on each apply route (default,
+MPASSIT_ELL_KERNEL=0, MPASSIT_GATHER_KERNEL=1) and the tool's problem build
+and variant run, and finds neither ``jax`` nor the JAX package's
 device-bound modules in sys.modules; and no source file of the package
 names jax in an import."""
 
@@ -20,6 +21,8 @@ import torch
 torch.set_num_threads(2)
 from mpassit_tpu_torch.run.pipeline import run_pipeline
 from mpassit_tpu_torch.ops import gather_kernel, onehot_kernel
+from mpassit_tpu_torch.ops import variant_kernels, write_wall
+from mpassit_tpu_torch.tools import kernel_variants
 from mpassit_tpu.config import Config
 from mpassit_tpu.mesh.synthetic import synthetic_voronoi_mesh
 from mpassit_tpu_torch.testing import (
@@ -69,6 +72,8 @@ for env in ({}, {"MPASSIT_ELL_KERNEL": "0"}, {"MPASSIT_GATHER_KERNEL": "1"}):
     counts.append((sum(onehot_kernel.PLAIN_CALLS.values()),
                    gather_kernel.PLAIN_CALLS))
 assert counts[0] == (0, 0) and counts[1][0] > 0 and counts[2][1] > 0, counts
+ell, _ = kernel_variants.build_problem(2000, 41, 25, os.path.join(d, "kv"))
+assert kernel_variants.run_variants(ell, "cpu", cols=128)["ok"]
 bound = [m for m in sys.modules
          if m == "jax" or m.startswith(("jax.", "jaxlib"))
          or m.startswith(("mpassit_tpu.ops", "mpassit_tpu.run",
