@@ -10,7 +10,10 @@ device-bound modules. Phases, each printing one JSON line:
 - device: the card (name and power limit from nvidia-smi), torch and CUDA
   versions, whether h5py and ninja are importable;
 - build: compiles the five sources of mpassit_tpu_torch/csrc/ with nvcc,
-  one process each, started together;
+  one process each, started together; for onehot_apply.cu the registers,
+  spills and shared memory of each kernel (the -Xptxas -v log) and the
+  counts of HGMMA and HMMA (tensor-core) and FFMA instructions in its
+  SASS (cuobjdump -sass); HGMMA + HMMA must not be 0;
 - inputs: a synthetic global MPAS mesh of 655,362 cells (the size of
   MPAS's x1.655362 30-km mesh), nz=55, nsoil=4, with seeded smooth fields
   for every variable of the shipped parm/ varlists, written as NetCDF4
@@ -35,15 +38,17 @@ device-bound modules. Phases, each printing one JSON line:
   card, at the main path's shapes: the packed bilinear+nearest+conserve
   pack of this mesh and grid at Cp=1024 with the (0, 55, 55) rotate window
   (with and without checksum) and the EDGE1 restagger pack (W ~ 1096,
-  Cp=128); the one-hot kernels for each precision; the gather kernel also
+  Cp=128); the one-hot kernels for each precision, with the number of
+  bf16 product terms and the achieved tensor-core TFLOP/s at the padded K
+  (ops/onehot_kernel.launch_plan); the gather kernel also
   bit for bit against packed_apply; the ELL-built split_bf16 variants v1
   and v2 (CC 128 and 256) on the bilinear operator at 512 columns, within
   1e-6 of max|plain| and v1 within 1e-6 of v2; median times by CUDA events
   after a warm-up;
 - write_wall: the store-only kernel at the packed output shape (Cp=1024)
   bit for bit against its plain version over the whole output, its write
-  GB/s, and packed_apply's time as a multiple of it (the measured write
-  roofline of the apply);
+  GB/s, and packed_apply's and onehot_apply_packed's (split6_bf16) times
+  as multiples of it (the measured write roofline of the apply);
 - kernel_variants: the tool mpassit_tpu_torch.tools.kernel_variants
   (v0 = packed_apply, v1, v2 at CC 128 and 256, the write wall at 512
   columns) on this mesh's cached bilinear operator at the full target
@@ -345,7 +350,8 @@ def kernel_vs_plain(art, device, seed):
     nz = art.mesh.nz
     cases = []
 
-    def run_case(kernel, name, call, plain, checksum, extra=None):
+    def run_case(kernel, name, call, plain, checksum, extra=None,
+                 flop=None):
         got = call()
         torch.cuda.synchronize()
         ref = plain()
@@ -368,6 +374,8 @@ def kernel_vs_plain(art, device, seed):
         if not checksum:
             out["ms"] = _time_ms(torch, call, 10)
             out["plain_ms"] = _time_ms(torch, plain, 5)
+            if flop is not None:
+                out["tflops"] = flop / out["ms"] / 1e9
             if out["ms"] > out["plain_ms"]:
                 out["note"] = "kernel slower than plain"
         torch.cuda.empty_cache()
@@ -405,6 +413,9 @@ def kernel_vs_plain(art, device, seed):
                 slab, locs, ws, **args), lambda: pk.packed_apply_plain(
                 slab, locs, ws, **args), cs)
         for prec in ("split6_bf16", "split_bf16", "highest"):
+            plan = ok.launch_plan(rg.n_tiles, rg.W, C, kw["ranges"],
+                                  kw.get("rotate", ()), prec)
+            terms = {"terms": plan.terms, "K": plan.K}
             for cs in sums:
                 if packed:
                     args = dict(**nt, **kw, with_checksum=cs,
@@ -413,14 +424,16 @@ def kernel_vs_plain(art, device, seed):
                         "onehot_apply_packed", f"{tag}_{prec}",
                         lambda: ok.onehot_apply_packed(rg.As, slab, **args),
                         lambda: ok.onehot_apply_packed_plain(rg.As, slab,
-                                                             **args), cs)
+                                                             **args), cs,
+                        extra=lambda got: terms, flop=plan.flop)
                 else:
                     run_case(
                         "onehot_apply", f"{tag}_{prec}",
                         lambda: ok.onehot_apply(rg.A, slab, **nt,
                                                 precision=prec),
                         lambda: ok.onehot_apply_plain(rg.A, slab, **nt,
-                                                      precision=prec), cs)
+                                                      precision=prec), cs,
+                        extra=lambda got: terms, flop=plan.flop)
         rg._As = None
         for cs in sums:
             args = dict(**nt, **kw, with_checksum=cs)
@@ -492,11 +505,12 @@ def kernel_vs_plain(art, device, seed):
 
 # ------------------------------------------------------ write wall ----
 
-def write_wall_phase(device, nty, ntx, packed_ms, seed):
+def write_wall_phase(device, nty, ntx, packed_ms, onehot_ms, seed):
     """The store-only kernel at the packed output shape (Cp = 1024): its
-    launches counted alone, its time, and its whole output against the
-    plain version bit for bit. Returns (the phase's launches, the kernel's
-    summary)."""
+    launches counted alone, its time, its whole output against the plain
+    version bit for bit, and the packed kernels' times (packed_apply,
+    onehot_apply_packed at split6_bf16) as multiples of it. Returns (the
+    phase's launches, the kernel's summary)."""
     import numpy as np
     import torch
 
@@ -526,6 +540,8 @@ def write_wall_phase(device, nty, ntx, packed_ms, seed):
            "packed_apply_ms": packed_ms,
            "packed_apply_over_wall": packed_ms / ms,
            "packed_apply_share_of_write_rate": ms / packed_ms,
+           "onehot_apply_packed_ms": onehot_ms,
+           "onehot_apply_packed_over_wall": onehot_ms / ms,
            "launches": launches, "plain_calls": plain_calls}
     rec["ok"] = equal and finite and _owed_only(launches, plain_calls,
                                                 ("write_wall",))
@@ -566,6 +582,47 @@ def _owed_only(launches, plain_calls, owed):
     return (all(launches[k] > 0 for k in owed)
             and not any(n for k, n in launches.items() if k not in owed)
             and not any(plain_calls.values()))
+
+
+# ---------------------------------------------------------------- build ----
+
+def ptxas_summary(log):
+    """Per kernel of a -Xptxas -v log: registers, spills, stack and static
+    shared memory."""
+    import re
+
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = {"function": m.group(1)}
+            out.append(cur)
+        elif cur is not None:
+            for key, pat in (("stack_bytes", r"(\d+) bytes stack frame"),
+                             ("spill_store_bytes", r"(\d+) bytes spill st"),
+                             ("spill_load_bytes", r"(\d+) bytes spill lo"),
+                             ("registers", r"Used (\d+) registers"),
+                             ("smem_bytes", r"(\d+) bytes smem")):
+                m = re.search(pat, line)
+                if m:
+                    cur[key] = int(m.group(1))
+    return out
+
+
+def sass_counts(so, source):
+    """Tensor-core instructions (HGMMA: wgmma; HMMA: mma.sync) and f32
+    FMAs in the SASS of a built library, by cuobjdump beside nvcc; None
+    without it."""
+    from mpassit_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc(source)), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", so], capture_output=True,
+                          text=True, check=True).stdout
+    ops = [ln.split()[1].split(".")[0] for ln in sass.splitlines()
+           if ln.strip().startswith("/*") and len(ln.split()) > 1]
+    return {k: sum(op == k for op in ops) for k in ("HGMMA", "HMMA", "FFMA")}
 
 
 # ----------------------------------------------------------------- main ----
@@ -729,14 +786,21 @@ def main(argv=None) -> int:
     with ThreadPoolExecutor(len(mods)) as ex:
         for f in [ex.submit(m.build) for m in mods]:
             f.result()
-    emit({"phase": "build", "build_s": time.perf_counter() - t0,
-          "sources": [{"source": os.path.relpath(m.SOURCE, HERE),
-                       "so": os.path.relpath(m.BUILD_INFO["so"], HERE),
-                       "nvcc_s": m.BUILD_INFO["seconds"]} for m in mods]})
+    build_s = time.perf_counter() - t0
     for m in mods:
         for line in m.BUILD_INFO["log"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {os.path.basename(m.SOURCE)}:", line.strip())
+    sass = sass_counts(ok.BUILD_INFO["so"], ok.SOURCE)
+    onehot = {"kernels": ptxas_summary(ok.BUILD_INFO["log"]),
+              "sass_instructions": sass}
+    emit({"phase": "build", "build_s": build_s,
+          "sources": [{"source": os.path.relpath(m.SOURCE, HERE),
+                       "so": os.path.relpath(m.BUILD_INFO["so"], HERE),
+                       "nvcc_s": m.BUILD_INFO["seconds"]} for m in mods],
+          "onehot_apply.cu": onehot})
+    if sass is not None and not sass["HGMMA"] + sass["HMMA"]:
+        raise SystemExit("onehot_apply.cu has no tensor-core instruction")
 
     # --- inputs ----------------------------------------------------------
     shutil.rmtree(WORK, ignore_errors=True)
@@ -905,7 +969,8 @@ def main(argv=None) -> int:
     phase_launches = dict(route_launches)
     phase_launches["write_wall"], summary["write_wall"] = write_wall_phase(
         device, -(-grid.ny // 32), -(-grid.nx // 32),
-        summary["packed_apply"]["ms"], args.seed)
+        summary["packed_apply"]["ms"], summary["onehot_apply_packed"]["ms"],
+        args.seed)
     phase_launches["kernel_variants"] = kernel_variants_phase(
         default_art, device, args.seed, reduced)
     del default_art, arts[:], grid

@@ -34,6 +34,25 @@ __device__ __forceinline__ float4 split(float x) {
   return make_float4(b0, b1, bf16_rn(__fsub_rn(r1, b1)), 0.0f);
 }
 
+// split<PREC> of two values at once: part i of (x0, x1) as a bf16 pair in
+// p[i], x0 at the lower address (the same roundings; PREC 1 or 2)
+template <int PREC>
+__device__ __forceinline__ void split_pair(float x0, float x1,
+                                           uint32_t (&p)[PREC + 1]) {
+  const __nv_bfloat162 b0 = __floats2bfloat162_rn(x0, x1);
+  const float2 f0 = __bfloat1622float2(b0);
+  const float r0 = __fsub_rn(x0, f0.x), r1 = __fsub_rn(x1, f0.y);
+  const __nv_bfloat162 b1 = __floats2bfloat162_rn(r0, r1);
+  p[0] = *reinterpret_cast<const uint32_t*>(&b0);
+  p[1] = *reinterpret_cast<const uint32_t*>(&b1);
+  if constexpr (PREC == 2) {
+    const float2 f1 = __bfloat1622float2(b1);
+    const __nv_bfloat162 b2 =
+        __floats2bfloat162_rn(__fsub_rn(r0, f1.x), __fsub_rn(r1, f1.y));
+    p[2] = *reinterpret_cast<const uint32_t*>(&b2);
+  }
+}
+
 // acc + the term set of PREC for one contraction row, in the TPU stack order
 template <int PREC>
 __device__ __forceinline__ float terms(float acc, const float4& a,

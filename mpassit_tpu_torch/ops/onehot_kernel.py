@@ -1,5 +1,5 @@
-"""One-hot-operator apply: the Hopper kernel, its plain twins and the bf16
-split helpers.
+"""One-hot-operator apply: the Hopper kernel, its plain twins, the bf16
+split helpers and the kernel's launch plan.
 
 Counterpart of the two TPU kernels of ``mpassit_tpu/ops/pallas_matmul.py``
 that take a one-hot operator ``A`` (``matmul_apply._build_A_T``):
@@ -12,20 +12,33 @@ that take a one-hot operator ``A`` (``matmul_apply._build_A_T``):
 
 ``A`` is ``(n_tiles, W, 1024)`` f32 here. The TPU takes it prestacked into
 3 or 6 bf16 copies (``_prep_A``); the CUDA kernel (``csrc/onehot_apply.cu``)
-and the plain versions split both operands themselves and compute the same
-term set per ``precision``:
+splits both operands into bf16 parts in shared memory and sums the terms
+on the tensor cores (``wgmma``, f32 accumulation):
 
-    highest:      A @ S in f32
     split_bf16:   Ah Sh + Ah Sl + Al Sh                    (_stack_A/_stack_S)
     split6_bf16:  A0S0 + A0S1 + A1S0 + A0S2 + A1S1 + A2S0  (_stack_A6/_stack_S6)
+    highest:      the kernel: the split6_bf16 terms; the plain version: A @ S
+                  in f32
 
 with ``hi = bf16_rn(x)``, ``lo = bf16_rn(x - hi)`` and the three-way parts
-of ``_split_3way``. A product of two bf16 values is exact in f32, so only
-the order of the f32 sums differs between the kernel, the plain version
-and the TPU. The plain versions (``_tile_matmul`` on the stacked operands,
-per tile row, then the shared epilogue of ops/packed_kernel.py) need full
-f32 matrix products: ``torch.backends.cuda.matmul.allow_tf32`` False, the
+of ``_split_3way``. The kernel's ``highest`` is the six-term set because the
+TPU's is: the JAX package computes it with "f32 operands at
+Precision.HIGHEST (XLA's own bf16_6x, six MXU passes)"
+(``mpassit_tpu/ops/matmul_apply.py:74-79``), the six terms of split6_bf16.
+The dropped A1S2 + A2S1 + A2S2 are about 2^-24 relative, so the kernel's
+``highest`` agrees with the plain f32 product within 1e-6 of its largest
+magnitude (``tests/test_torch_onehot_plan.py`` pins that on the CPU). A
+product of two bf16 values is exact in f32, so otherwise only the order of
+the f32 sums differs between the kernel, the plain version and the TPU.
+The plain versions (``_tile_matmul`` on the stacked operands, per tile
+row, then the shared epilogue of ops/packed_kernel.py) need full f32
+matrix products: ``torch.backends.cuda.matmul.allow_tf32`` False, the
 default, on a card.
+
+``launch_plan`` is the kernel's launch geometry as a pure function: padded
+K, the grid, the method passes of each 128-column chunk, where each
+rotation partner is computed, the checksum partials and the dynamic shared
+memory. Its ``table`` is what the kernel reads on the device.
 
 Each wrapper launches the kernel for CUDA tensors and runs its plain
 version for CPU tensors; there is no fallback from one to the other.
@@ -33,8 +46,10 @@ version for CPU tensors; there is no fallback from one to the other.
 
 from __future__ import annotations
 
+import functools
 import os
 import threading
+from dataclasses import dataclass
 
 import torch
 
@@ -52,9 +67,17 @@ from .packed_kernel import (
     _stream,
 )
 
-#: precision -> the kernel's term set (0 highest, 1 split_bf16, 2 split6)
-PRECISION_CODE = {"highest": 0, "split_bf16": 1, "split6_bf16": 2}
-PB = 32             # target points per block in csrc/onehot_apply.cu
+#: precision -> the number of bf16 product terms the kernel sums
+TERMS = {"highest": 6, "split_bf16": 3, "split6_bf16": 6}
+# the geometry of csrc/onehot_apply.cu
+COLS = LANE         # columns per block (the wgmma N)
+PTS = 128           # target points per block (two warpgroups of 64 rows)
+NSTRIP = TILE // PTS
+KS = 32             # operator rows per pipeline step
+K_STEP = 16         # the wgmma depth: K is W padded to a multiple of it
+EPAD = 136          # row stride (floats) of a staged f32 tile
+SMEM_MAX = 232_448  # dynamic shared memory a block can have on an H100
+W_CAP = 2048        # matmul_apply.W_CAP: the widest slab a pack builds
 
 #: kernel launches per wrapper (one per call on a CUDA tensor)
 LAUNCHES = {"onehot_apply": 0, "onehot_apply_packed": 0}
@@ -70,8 +93,8 @@ _lib = None
 BUILD_INFO: dict = {}
 
 _P, _I, _IP, _PP = _build.P, _build.I, _build.IP, _build.PP
-_ARGTYPES = [_P, _P, _PP, _IP, _IP, _I, _IP, _IP, _IP, _I, _P, _P, _P, _P,
-             _I, _I, _I, _I, _I, _P]
+_ARGTYPES = [_P, _P, _PP, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+             _I, _I, _P]
 
 
 def build():
@@ -150,11 +173,140 @@ def _tile_matmul(A, slab, precision):
     return torch.bmm(A.float().transpose(1, 2), slab.float())
 
 
+# --------------------------------------------------------- launch plan ----
+
+def _smem_bytes(terms, partner):
+    """csrc/onehot_apply.cu::smem_bytes: the double-buffered ring of bf16
+    parts (or one staged f32 tile, if larger), plus the own tile's stage
+    when a partner tile is computed."""
+    parts = 2 if terms == 3 else 3
+    ring = 2 * 2 * parts * PTS * KS * 2
+    tile = PTS * EPAD * 4
+    return max(ring, tile) + (tile if partner else 0)
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """The geometry of one launch of csrc/onehot_apply.cu (``launch_plan``)."""
+
+    n_tiles: int
+    K: int              # W padded to a multiple of K_STEP
+    steps: int          # KS-row pipeline steps per method pass
+    grid: int           # blocks: (tile, chunk, strip), strips fastest
+    nchunk: int
+    terms: int
+    own: tuple          # per chunk: the methods of its K passes, in order
+    partner: tuple      # per chunk: the partner tile's methods, or None
+    #: per chunk: the (column, partner) pairs whose partner lies outside
+    #: the chunk; computed at the column's position in the partner tile
+    external: tuple
+    n_parts: int        # checksum partials per tile
+    smem: int           # dynamic shared-memory bytes
+    table: tuple        # the int table the kernel reads
+
+    @property
+    def partnered(self):
+        """Whether some chunk computes a partner tile."""
+        return any(p is not None for p in self.partner)
+
+    @property
+    def passes(self):
+        """K passes of one tile's blocks (own and partner tiles)."""
+        return NSTRIP * (sum(map(len, self.own))
+                         + sum(len(p) for p in self.partner if p))
+
+    @property
+    def flop(self):
+        """Tensor-core FLOP of the launch: every term of every pass at
+        the padded K."""
+        return (2 * self.terms * PTS * COLS * self.K * self.passes
+                * self.n_tiles)
+
+
+def launch_plan(n_tiles, W, Cp, ranges, rotate=(), precision="split6_bf16"):
+    """The launch geometry of ``onehot_apply(_packed)`` on a card, for
+    ``n_tiles`` tiles of a (W-row, Cp-column) slab, the method column
+    ``ranges`` and the ``(cu, cv, n)`` rotation windows. Raises ValueError
+    on what the kernel does not take: W outside [1, W_CAP], Cp not a
+    positive multiple of 128, more than MAX_METHODS ranges or MAX_WINDOWS
+    windows, ranges that do not tile [0, C <= Cp), windows that leave
+    [0, Cp) or share a column, a grid over 2^31 - 1 blocks.
+
+    Every column ``c < ranges[-1][1]`` is computed once, in chunk
+    ``c // 128``'s own pass of its method (``table[c]``); the rest are the
+    zero tail. A rotated column whose partner lies in another chunk reads
+    it from the chunk's partner tile, which stages the partners' slab
+    columns under their own methods' passes."""
+    ranges, rotate = tuple(map(tuple, ranges)), tuple(map(tuple, rotate))
+    if precision not in TERMS:
+        raise ValueError(f"precision must be one of {tuple(TERMS)}")
+    if not 1 <= W <= W_CAP:
+        raise ValueError(f"W={W} outside [1, {W_CAP}]")
+    if Cp < COLS or Cp % COLS:
+        raise ValueError(f"column count {Cp} not a positive multiple of "
+                         f"{COLS}")
+    if n_tiles < 1:
+        raise ValueError("no tiles")
+    if not 1 <= len(ranges) <= MAX_METHODS or len(rotate) > MAX_WINDOWS:
+        raise ValueError(f"1 to {MAX_METHODS} ranges and at most "
+                         f"{MAX_WINDOWS} rotate windows per launch")
+    method = [-1] * Cp
+    prev = 0
+    for m, (c0, c1) in enumerate(ranges):
+        if c0 != prev or c1 <= c0 or c1 > Cp:
+            raise ValueError(f"ranges must tile [0, C <= {Cp}) "
+                             f"contiguously: {ranges}")
+        method[c0:c1] = [m] * (c1 - c0)
+        prev = c1
+    role, part = [0] * Cp, [-1] * Cp
+    for (cu, cv, n) in rotate:
+        if n < 1 or min(cu, cv) < 0 or max(cu, cv) + n > Cp:
+            raise ValueError(f"rotate window {(cu, cv, n)} outside "
+                             f"[0, {Cp})")
+        for i in range(n):
+            for c, p, rl in ((cu + i, cv + i, 1), (cv + i, cu + i, 2)):
+                if role[c]:
+                    raise ValueError(f"rotate windows share column {c}")
+                role[c], part[c] = rl, p
+    nchunk = Cp // COLS
+    grid = n_tiles * nchunk * NSTRIP
+    if grid > 2 ** 31 - 1:
+        raise ValueError(f"{grid} blocks exceed the grid limit")
+    own, partner, external = [], [], []
+    for j in range(nchunk):
+        cols = range(j * COLS, (j + 1) * COLS)
+        own.append(tuple(sorted({method[c] for c in cols if method[c] >= 0})))
+        ext = tuple((c, part[c]) for c in cols
+                    if role[c] and part[c] // COLS != j)
+        external.append(ext)
+        partner.append(tuple(sorted({method[p] for _, p in ext
+                                     if method[p] >= 0})) if ext else None)
+    terms = TERMS[precision]
+    masks = [sum(1 << m for m in ms) for ms in own]
+    pmasks = [-1 if p is None else sum(1 << m for m in p) for p in partner]
+    K = -(-W // K_STEP) * K_STEP
+    return LaunchPlan(
+        n_tiles=n_tiles, K=K, steps=-(-K // KS), grid=grid, nchunk=nchunk,
+        terms=terms,
+        own=tuple(own), partner=tuple(partner), external=tuple(external),
+        n_parts=nchunk * NSTRIP,
+        smem=_smem_bytes(terms, any(p is not None for p in partner)),
+        table=tuple(method + role + part + masks + pmasks))
+
+
+@functools.lru_cache(maxsize=32)
+def _plan_on(dev, n_tiles, W, Cp, ranges, rotate, precision):
+    """launch_plan and its table on ``dev``, once per geometry: a launch
+    enqueues the kernel without building either on the host."""
+    plan = launch_plan(n_tiles, W, Cp, ranges, rotate, precision)
+    return plan, torch.tensor(plan.table, dtype=torch.int32, device=dev)
+
+
 # ------------------------------------------------------------ wrappers ----
 
 def _check_onehot(As, slab, precision):
-    if precision not in PRECISION_CODE:
-        raise ValueError(f"precision must be one of {tuple(PRECISION_CODE)}")
+    if precision not in TERMS:
+        raise ValueError(f"precision must be one of {tuple(TERMS)}")
     if slab.dim() != 3 or slab.dtype != torch.float32:
         raise ValueError("slab must be a (n_tiles, W, Cp) float32 tensor")
     n_tiles, W, _ = slab.shape
@@ -167,29 +319,23 @@ def _check_onehot(As, slab, precision):
 
 def _launch(name, As, slab, ranges, nty, ntx, precision, rotate, cosa, sina,
             with_checksum):
-    nm, nr = len(ranges), len(rotate)
-    if nm > MAX_METHODS or nr > MAX_WINDOWS:
-        raise ValueError(f"at most {MAX_METHODS} ranges and {MAX_WINDOWS} "
-                         f"rotate windows per launch")
+    n_tiles, W, Cp = slab.shape
     dev = slab.device
+    plan, table = _plan_on(dev, n_tiles, W, Cp, ranges, rotate, precision)
     slab = slab.contiguous()
     As = [A.contiguous() for A in As]
     if rotate:
         cosa, sina = cosa.contiguous(), sina.contiguous()
     lib = build()
-    n_tiles, W, Cp = slab.shape
     out, partial, checksum = _outputs(dev, n_tiles, nty, ntx, Cp,
-                                      Cp // LANE * (TILE // PB),
-                                      with_checksum)
+                                      plan.n_parts, with_checksum)
     with torch.cuda.device(dev):
         rc = lib.onehot_apply_launch(
-            slab.data_ptr(), out.data_ptr(), ptrs(As),
-            ints([r[0] for r in ranges]), ints([r[1] for r in ranges]), nm,
-            ints([r[0] for r in rotate]), ints([r[1] for r in rotate]),
-            ints([r[2] for r in rotate]), nr,
+            slab.data_ptr(), out.data_ptr(), ptrs(As), len(As),
+            table.data_ptr(), int(plan.partnered),
             ptr(cosa if rotate else None), ptr(sina if rotate else None),
-            ptr(partial), ptr(checksum), n_tiles, ntx, W, Cp,
-            PRECISION_CODE[precision], _stream(dev))
+            ptr(partial), ptr(checksum), n_tiles, ntx, W, plan.K, Cp,
+            plan.terms, plan.smem, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"onehot_apply_launch failed: rc={rc}")
     LAUNCHES[name] += 1

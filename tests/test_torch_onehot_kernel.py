@@ -232,18 +232,34 @@ def test_validation(kw, match):
         ok.onehot_apply_packed(As, slab, **args)
 
 
+#: card cases: (nty, ntx, W, Cp, ranges, rotate)
+CARD_CASES = {
+    # three methods, a tail, a window inside chunk 0 and one inside chunk 1
+    "w40_methods_tail": (3, 5, 40, 384, ((0, 200), (200, 290), (290, 301)),
+                         ((0, 50, 50), (210, 220, 10))),
+    # W = 8 (one k16 slice); window (100, 150, 20): v in the next chunk
+    "w8_straddle": (2, 3, 8, 384, ((0, 200), (200, 290), (290, 301)),
+                    ((100, 150, 20), (210, 220, 10))),
+    # the restagger's width on a few tiles (K = 1104, a half last step)
+    "w1096": (1, 3, 1096, 128, ((0, 128),), ()),
+    # the CONUS pack's columns: two method boundaries inside chunk 7
+    "w40_pack": (2, 2, 40, 1024, ((0, 992), (992, 1008), (1008, 1024)),
+                 ((0, 55, 55),)),
+}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CARD_CASES))
 @pytest.mark.parametrize("precision", PRECISIONS)
 @pytest.mark.parametrize("checksum", [False, True])
-def test_cuda_kernel_matches_plain(cuda_device, precision, checksum):
-    """On the card: the kernel against its plain version, rtol 1e-6 of
-    max|plain| (same terms, another order of the f32 sums); checksums rtol
-    1e-5. Three methods, a tail, two rotation windows (one pairing across
-    a 128-column block), W not a multiple of the kernel's 32-row step."""
-    nty, ntx = 3, 5
-    ranges = ((0, 200), (200, 290), (290, 301))
-    rotate = ((0, 50, 50), (210, 220, 10))
-    As, slab, cosa, sina = _rand_problem(4, nty, ntx, W=40, Cp=384, nm=3)
+def test_cuda_kernel_matches_plain(cuda_device, case, precision, checksum):
+    """On the card: the kernel against its plain version, within 1e-6 of
+    max|plain| (the same bf16 terms in another order of the f32 sums; at
+    ``highest`` the kernel's six terms against the plain f32 product, see
+    tests/test_torch_onehot_plan.py); checksums rtol 1e-5."""
+    nty, ntx, W, Cp, ranges, rotate = CARD_CASES[case]
+    As, slab, cosa, sina = _rand_problem(4, nty, ntx, W=W, Cp=Cp,
+                                         nm=len(ranges))
     T = lambda a: torch.from_numpy(a).to(cuda_device)  # noqa: E731
     kw = dict(ranges=ranges, nty=nty, ntx=ntx, rotate=rotate, cosa=T(cosa),
               sina=T(sina), with_checksum=checksum, precision=precision)
@@ -258,6 +274,7 @@ def test_cuda_kernel_matches_plain(cuda_device, precision, checksum):
         torch.testing.assert_close(gcs, rcs, rtol=1e-5, atol=0)
     assert torch.isfinite(got).all()
     assert (got - ref).abs().max() <= 1e-6 * ref.abs().max()
+    assert (got[:, :, ranges[-1][1]:] == 0).all()
     # the single-method entry point
     A0, s0 = args[0][0], args[1]
     one = ok.onehot_apply(A0, s0, nty=nty, ntx=ntx, precision=precision)
