@@ -4,8 +4,9 @@
     python3 chip_smoke.py [--seed N] [--ncells N]
 
 Run from the root of a checkout. It needs a CUDA device and exits 1
-without one; it imports nothing of JAX or of the JAX package's
-device-bound modules. Phases, each printing one JSON line:
+without one; it imports nothing of JAX and nothing of the JAX package
+(mpassit_tpu): the port carries its own host layers. Phases, each printing
+one JSON line:
 
 - device: the card (name and power limit from nvidia-smi), torch and CUDA
   versions, whether h5py and ninja are importable;
@@ -44,11 +45,21 @@ device-bound modules. Phases, each printing one JSON line:
   bit for bit against packed_apply; the ELL-built split_bf16 variants v1
   and v2 (CC 128 and 256) on the bilinear operator at 512 columns, within
   1e-6 of max|plain| and v1 within 1e-6 of v2; median times by CUDA events
-  after a warm-up;
+  after a warm-up; per timed case its bound (``bound_ms``: the larger of
+  the bytes it must move, each counted once, over 3.35 TB/s and its
+  operations over the peak rate of their type), ``of_bound`` (bound over
+  time), the launches of the kernel on its route's main-path run
+  (``launches_per_run``) and ``library_ms``, one PyTorch call of the same
+  function on the same operands used only as a yardstick: torch.sparse.mm
+  over a CSR of the ELL arrays (one call per method range, summed; it
+  neither unblocks nor rotates, and for v1/v2 it computes f32 products,
+  not split_bf16) for packed_apply, packed_gather_apply and v1/v2,
+  torch.bmm in f32 (TF32 off) for the one-hot kernels;
 - write_wall: the store-only kernel at the packed output shape (Cp=1024)
   bit for bit against its plain version over the whole output, its write
   GB/s, and packed_apply's and onehot_apply_packed's (split6_bf16) times
-  as multiples of it (the measured write roofline of the apply);
+  as multiples of it (the measured write roofline of the apply); its bound
+  and ``library_ms`` (Tensor.fill_ of the same tensor);
 - kernel_variants: the tool mpassit_tpu_torch.tools.kernel_variants
   (v0 = packed_apply, v1, v2 at CC 128 and 256, the write wall at 512
   columns) on this mesh's cached bilinear operator at the full target
@@ -81,6 +92,11 @@ NCELLS = 655_362          # MPAS x1.655362 (30-km quasi-uniform) cell count
 NZ, NSOIL = 55, 4
 TOL_REL = 1e-6            # f32 apply vs f64 oracle (register R10 class)
 TOL_KERNEL = 1e-6         # kernel vs plain, relative to max|plain|
+#: the H100 SXM's published rates (NVIDIA data sheet; at 700 W): device
+#: memory bytes/s, dense bf16 tensor-core and f32 CUDA-core FLOP/s
+HBM_BYTES_S = 3.35e12
+PEAK_BF16 = 989e12
+PEAK_F32 = 67e12
 
 
 def emit(obj) -> None:
@@ -106,7 +122,7 @@ def _fields(routing, mesh, rng, np):
     """Seeded smooth fields for every variable the routing reads: per
     variable a random base, amplitude and wave numbers over a level
     ramp."""
-    from mpassit_tpu.fields.registry import U_VAR, V_VAR
+    from mpassit_tpu_torch.fields.registry import U_VAR, V_VAR
 
     lat = np.deg2rad(mesh.lat_cell)
     lon = np.deg2rad(mesh.lon_cell)
@@ -156,8 +172,8 @@ def prepare_inputs(work, parm, ncells, seed, classic):
     the namelist path and what was written."""
     import numpy as np
 
-    from mpassit_tpu.fields.registry import build_routing
-    from mpassit_tpu.mesh.synthetic import synthetic_voronoi_mesh
+    from mpassit_tpu_torch.fields.registry import build_routing
+    from mpassit_tpu_torch.mesh.synthetic import synthetic_voronoi_mesh
 
     if classic:
         from mpassit_tpu_torch.testing import (
@@ -165,7 +181,7 @@ def prepare_inputs(work, parm, ncells, seed, classic):
             write_grid_file_classic as write_grid,
         )
     else:
-        from mpassit_tpu.mesh.synthetic import (
+        from mpassit_tpu_torch.mesh.synthetic import (
             write_mpas_data_file as write_data,
             write_mpas_grid_file as write_grid,
         )
@@ -223,7 +239,7 @@ def check_outputs(art, n_sample, seed):
     {var: max rel err} and raises on any variable over TOL_REL."""
     import numpy as np
 
-    from mpassit_tpu.constants import PROJ_LC
+    from mpassit_tpu_torch.constants import PROJ_LC
     from mpassit_tpu_torch.run.pipeline import build_weights
 
     cfg, grid, mesh, routing = art.cfg, art.grid, art.mesh, art.routing
@@ -310,6 +326,69 @@ def check_outputs(art, n_sample, seed):
 
 # ------------------------------------------------------- kernel vs plain ----
 
+def bound_ms(nbytes, flop=0.0, peak=PEAK_F32):
+    """(ms, "bytes" or "operations"): the least time the card could take,
+    the larger of the bytes over HBM_BYTES_S and the operations over
+    ``peak``."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flop / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def _rows_of(torch, loc, W, ch=None):
+    """The slab row (t * W + r) or, with the gather layout's chunk starts
+    ``ch``, the source row each loc entry reads."""
+    n_tiles = loc.shape[0]
+    if ch is None:
+        t = torch.arange(n_tiles, device=loc.device).view(-1, 1, 1)
+        return t * W + loc.long()
+    r = loc.long().reshape(n_tiles, -1)
+    start = torch.gather(ch.long(), 1, r >> 3)
+    return (start * 8 + (r & 7)).view_as(loc)
+
+
+def ell_work(torch, locs, ranges, W, out_numel, ch=None, rotate=False):
+    """(bytes, flop) an ELL apply must move and do on these operands: the
+    output written once, each row a method reads once over the method's
+    columns, loc/w once (cosa/sina with a rotation), a multiply and an add
+    per term."""
+    nbytes, flop = out_numel * 4, 0
+    for (c0, c1), loc in zip(ranges, locs):
+        rows = torch.unique(_rows_of(torch, loc, W, ch)).numel()
+        nbytes += rows * (c1 - c0) * 4 + loc.numel() * 8
+        flop += 2 * loc.numel() * (c1 - c0)
+    n_tiles = locs[0].shape[0]
+    if rotate:
+        nbytes += 2 * n_tiles * 1024 * 4
+    if ch is not None:
+        nbytes += ch.numel() * 4
+    return nbytes, flop
+
+
+def csr_yardstick(torch, locs, ws, ranges, W, n_rows, dense, ch=None):
+    """torch.sparse.mm over a CSR of the ELL arrays (tile-blocked target
+    rows, slab or source rows as columns), one call per method range on a
+    contiguous copy of its columns of ``dense``: returns the function to
+    time. The CSR build and the copies happen here, outside the timing."""
+    import warnings
+
+    mats = []
+    for (c0, c1), loc, w in zip(ranges, locs, ws):
+        n_tiles = loc.shape[0]
+        r = (torch.arange(n_tiles, device=loc.device).view(-1, 1, 1) * 1024
+             + torch.arange(1024, device=loc.device).view(1, 1, -1)
+             ).expand_as(loc)
+        c = _rows_of(torch, loc, W, ch)
+        with warnings.catch_warnings():     # sparse CSR is "beta"
+            warnings.simplefilter("ignore", UserWarning)
+            A = torch.sparse_coo_tensor(
+                torch.stack([r.reshape(-1), c.reshape(-1)]), w.reshape(-1),
+                (n_tiles * 1024, n_rows)).coalesce().to_sparse_csr()
+        mats.append((A, dense[:, c0:c1].contiguous()))
+    return lambda: [torch.sparse.mm(A, B) for A, B in mats]
+
+
 def _time_ms(torch, fn, n):
     fn()
     torch.cuda.synchronize()
@@ -326,10 +405,12 @@ def _time_ms(torch, fn, n):
     return ts[len(ts) // 2]
 
 
-def kernel_vs_plain(art, device, seed):
+def kernel_vs_plain(art, device, seed, launches_per_run):
     """Every kernel against its plain PyTorch version on the card at the
     main path's shapes. Returns (per-case results, {kernel: summary});
-    the summary's ms/plain_ms are those of the kernel's first case."""
+    the summary's ms/plain_ms, bound and library_ms are those of the
+    kernel's first timed case. ``launches_per_run``: {kernel: launches on
+    its route's main-path run}."""
     import numpy as np
     import torch
 
@@ -351,7 +432,10 @@ def kernel_vs_plain(art, device, seed):
     cases = []
 
     def run_case(kernel, name, call, plain, checksum, extra=None,
-                 flop=None):
+                 flop=None, work=None, library=None):
+        """``work``: (bytes, flop, peak) of the function for its bound;
+        ``library``: a thunk that prepares and returns the yardstick call
+        (timed, not checksum, cases only)."""
         got = call()
         torch.cuda.synchronize()
         ref = plain()
@@ -371,6 +455,12 @@ def kernel_vs_plain(art, device, seed):
         if extra is not None:
             out.update(extra(got))
         del got, ref, d
+        nbytes, ops, peak = work
+        out["bytes"], out["flop"] = nbytes, ops
+        out["bound_ms"], out["bound_by"] = bound_ms(nbytes, ops, peak)
+        out["launches_per_run"] = launches_per_run.get(kernel, 0)
+        # untimed (checksum) cases: no time, so no share of the bound
+        out["of_bound"] = out["library_ms"] = None
         if not checksum:
             out["ms"] = _time_ms(torch, call, 10)
             out["plain_ms"] = _time_ms(torch, plain, 5)
@@ -378,6 +468,13 @@ def kernel_vs_plain(art, device, seed):
                 out["tflops"] = flop / out["ms"] / 1e9
             if out["ms"] > out["plain_ms"]:
                 out["note"] = "kernel slower than plain"
+            out["of_bound"] = out["bound_ms"] / out["ms"]
+            if library is not None:
+                lib_call = library()
+                out["library_ms"] = _time_ms(torch, lib_call, 5)
+                del lib_call
+                if out["ms"] > out["library_ms"]:
+                    out["note_library"] = "kernel slower than library call"
         torch.cuda.empty_cache()
         ok_ = (out["finite"] and out["max_rel_err"] <= TOL_KERNEL
                and out.get("checksum_max_rel_err", 0.0) <= 1e-5
@@ -407,15 +504,33 @@ def kernel_vs_plain(art, device, seed):
         nt = dict(nty=rg.nty, ntx=rg.ntx)
         packed = isinstance(rg, PackedSlabRegridder)
         sums = (False, True) if packed else (False,)
+        ranges, rot = kw["ranges"], bool(kw.get("rotate"))
+        out_numel = rg.nty * 32 * rg.ntx * 32 * C
+        slab2 = slab.view(-1, C)
+        ell = ell_work(torch, locs, ranges, rg.W, out_numel, rotate=rot)
         for cs in sums:
             args = dict(**nt, **kw, with_checksum=cs)
             run_case("packed_apply", tag, lambda: pk.packed_apply(
                 slab, locs, ws, **args), lambda: pk.packed_apply_plain(
-                slab, locs, ws, **args), cs)
+                slab, locs, ws, **args), cs, work=(*ell, PEAK_F32),
+                library=lambda: csr_yardstick(torch, locs, ws, ranges, rg.W,
+                                              slab2.shape[0], slab2))
+        As = rg.As if packed else [rg.A]
+        dense_bytes = (out_numel + slab.numel()
+                       + sum(A.numel() for A in As)) * 4
+
+        def bmm(As=As):
+            """torch.bmm of each method's A^T with its columns of the slab
+            (f32, TF32 off)."""
+            mats = [(A.transpose(1, 2), slab[:, :, c0:c1].contiguous())
+                    for A, (c0, c1) in zip(As, ranges)]
+            return lambda: [torch.bmm(A, S) for A, S in mats]
         for prec in ("split6_bf16", "split_bf16", "highest"):
             plan = ok.launch_plan(rg.n_tiles, rg.W, C, kw["ranges"],
                                   kw.get("rotate", ()), prec)
             terms = {"terms": plan.terms, "K": plan.K}
+            work = (dense_bytes, plan.terms * 2 * rg.n_tiles * 1024 * rg.W
+                    * ranges[-1][1], PEAK_BF16)
             for cs in sums:
                 if packed:
                     args = dict(**nt, **kw, with_checksum=cs,
@@ -425,7 +540,8 @@ def kernel_vs_plain(art, device, seed):
                         lambda: ok.onehot_apply_packed(rg.As, slab, **args),
                         lambda: ok.onehot_apply_packed_plain(rg.As, slab,
                                                              **args), cs,
-                        extra=lambda got: terms, flop=plan.flop)
+                        extra=lambda got: terms, flop=plan.flop, work=work,
+                        library=bmm)
                 else:
                     run_case(
                         "onehot_apply", f"{tag}_{prec}",
@@ -433,8 +549,12 @@ def kernel_vs_plain(art, device, seed):
                                                 precision=prec),
                         lambda: ok.onehot_apply_plain(rg.A, slab, **nt,
                                                       precision=prec), cs,
-                        extra=lambda got: terms, flop=plan.flop)
+                        extra=lambda got: terms, flop=plan.flop, work=work,
+                        library=bmm)
+        del As, bmm
         rg._As = None
+        gat = ell_work(torch, locs8, ranges, rg.W8, out_numel, ch=ch,
+                       rotate=rot)
         for cs in sums:
             args = dict(**nt, **kw, with_checksum=cs)
 
@@ -448,7 +568,10 @@ def kernel_vs_plain(art, device, seed):
                                                     W8=rg.W8, **args),
                      lambda: gk.packed_gather_apply_plain(
                          src_pad, ch, locs8, ws8, W8=rg.W8, **args), cs,
-                     extra=same)
+                     extra=same, work=(*gat, PEAK_F32),
+                     library=lambda: csr_yardstick(
+                         torch, locs8, ws8, ranges, rg.W8, src_pad.shape[0],
+                         src_pad, ch=ch))
 
     # the packed bilinear+nearest+conserve operator at Cp = 1024 with the
     # mass-wind window (0, nz, nz) first, like the main path's pack
@@ -475,6 +598,15 @@ def kernel_vs_plain(art, device, seed):
     slab, _ = operands(bil, 512)
     (loc,), (wt,) = bil._ell_dev()
     nt = dict(nty=bil.nty, ntx=bil.ntx)
+    vnum = bil.nty * 32 * bil.ntx * 32 * 512
+    vbytes, _ = ell_work(torch, [loc], ((0, 512),), bil.W, vnum)
+    # split_bf16: three bf16 products over the dense one-hot A
+    vwork = (vbytes, 3 * 2 * bil.n_tiles * 1024 * bil.W * 512, PEAK_BF16)
+    slab2 = slab.view(-1, 512)
+
+    def vlib():
+        return csr_yardstick(torch, [loc], [wt], ((0, 512),), bil.W,
+                             slab2.shape[0], slab2)
 
     def vs_v2(got):
         v2 = vk.ell_split_apply_v2(loc, wt, slab, **nt)
@@ -486,20 +618,22 @@ def kernel_vs_plain(art, device, seed):
     run_case("ell_split_apply_v1", "bilinear_cp512",
              lambda: vk.ell_split_apply_v1(loc, wt, slab, **nt),
              lambda: vk.ell_split_apply_v1_plain(loc, wt, slab, **nt), False,
-             extra=vs_v2)
+             extra=vs_v2, work=vwork, library=vlib)
     for cc in vk.V2_CC:
         run_case("ell_split_apply_v2", f"bilinear_cp512_cc{cc}",
                  lambda: vk.ell_split_apply_v2(loc, wt, slab, CC=cc, **nt),
                  lambda: vk.ell_split_apply_v2_plain(loc, wt, slab, **nt),
-                 False)
-    del bil, slab, loc, wt
+                 False, work=vwork, library=vlib)
+    del bil, slab, slab2, loc, wt
     torch.cuda.empty_cache()
     summary = {}
     for c in cases:
         s = summary.setdefault(c["kernel"], {"max_abs_err": 0.0})
         s["max_abs_err"] = max(s["max_abs_err"], c["max_abs_err"])
         if "ms" in c and "ms" not in s:
-            s.update(ms=c["ms"], plain_ms=c["plain_ms"], ms_case=c["case"])
+            s.update({k: c[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")},
+                     ms_case=c["case"])
     return cases, summary
 
 
@@ -527,13 +661,18 @@ def write_wall_phase(device, nty, ntx, packed_ms, onehot_ms, seed):
     ref = ww.write_wall_plain(row, nty=nty, ntx=ntx)
     equal = bool(torch.equal(got, ref))
     finite = bool(torch.isfinite(got).all())
-    del got, ref
+    del ref
+    library_ms = _time_ms(torch, lambda: got.fill_(1.0), 10)
+    del got
     torch.cuda.empty_cache()
     plain_ms = _time_ms(torch, lambda: ww.write_wall_plain(row, nty=nty,
                                                           ntx=ntx), 5)
     nbytes = nty * 32 * ntx * 32 * Cp * 4
+    bound, bound_by = bound_ms(nbytes)
     rec = {"phase": "write_wall", "shape": [nty * 32, ntx * 32, Cp],
            "out_bytes": nbytes, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound, "bound_by": bound_by, "of_bound": bound / ms,
+           "library_ms": library_ms, "library": "Tensor.fill_",
            "write_gb_per_s": nbytes / ms / 1e6,
            "plain_gb_per_s": nbytes / plain_ms / 1e6,
            "bit_identical_to_plain": equal, "finite": finite,
@@ -549,6 +688,8 @@ def write_wall_phase(device, nty, ntx, packed_ms, onehot_ms, seed):
     if not rec["ok"]:
         raise AssertionError(f"write_wall phase failed: {rec}")
     return launches, {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound, "bound_by": bound_by,
+                      "library_ms": library_ms,
                       "ms_case": f"packed_conus_cp{Cp}"}
 
 
@@ -874,7 +1015,7 @@ def main(argv=None) -> int:
         pipeline.write_output = lambda path, cfg, grid, data, res: None
         print(json.dumps({"output_write":
                           "captured in memory: h5py not installed"}))
-        # the shared classic-format reader (mpassit_tpu/io/nc4.py::_decode)
+        # the classic-format reader (mpassit_tpu_torch/io/nc4.py::_decode)
         # imports h5py only to test attribute values against h5py.Empty,
         # which scipy never returns: a module holding that class stands in
         shim = types.ModuleType("h5py")
@@ -930,7 +1071,7 @@ def main(argv=None) -> int:
         errs = check_outputs(art, 4000, args.seed)
         written = None
         if has_h5py and route == "ell":
-            from mpassit_tpu.io.nc4 import open_dataset
+            from mpassit_tpu_torch.io.nc4 import open_dataset
 
             with open_dataset(art.cfg.output_file) as f:
                 names = set(f.var_names())
@@ -964,7 +1105,10 @@ def main(argv=None) -> int:
         os.environ.pop(k, None)
 
     # --- kernel vs plain, the write wall, the kernel variants --------------
-    cases, summary = kernel_vs_plain(default_art, device, args.seed)
+    cases, summary = kernel_vs_plain(
+        default_art, device, args.seed,
+        {k: route_launches[PHASE_OF[k]][k] for k in KERNELS
+         if PHASE_OF[k] in route_launches})
     grid = default_art.grid
     phase_launches = dict(route_launches)
     phase_launches["write_wall"], summary["write_wall"] = write_wall_phase(

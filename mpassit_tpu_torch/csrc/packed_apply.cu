@@ -15,47 +15,41 @@
 // operands; none of that carries over. Here the sum is computed directly:
 // K indexed loads and K multiply-adds per output value, in f32.
 //
-// What bounds it on an H100: device-memory writes. The output is
+// What bounds it on an H100: device-memory writes of the output, which is
 // (nty*32, ntx*32, Cp) f32 -- 8.1 GB per pass at the CONUS grid and
 // Cp = 1024 -- while the slab a tile reads is ~W*Cp*4 bytes (W ~ 16-40
-// rows) and is re-read from L1/L2 for each of the tile's 1024 points.
-// The design therefore keeps the write stream coalesced (see
-// ell_apply.cuh). Shared-memory staging, TMA and wgmma are not used.
+// rows at the pack, ~1100 at the restaggers). The template (ell_apply.cuh)
+// keeps the write stream in 16-byte coalesced stores, stages the slab rows
+// of a block's columns in shared memory where ops/packed_kernel.ell_plan
+// finds that they fit, and keeps 4 points' row loads in flight per thread.
 
 #include "ell_apply.cuh"
 
 struct SlabRows {
-  const float* slab;   // (n_tiles, W, Cp)
-  int W;
+  const float* slab;   // (n_tiles, nrows, Cp)
+  int nrows;
   int Cp;
-  struct Tile {
-    const float* base;
-    int Cp;
-    __device__ __forceinline__ float operator()(int64_t r, int c) const {
-      return __ldg(base + r * Cp + c);
-    }
-  };
-  __device__ __forceinline__ Tile tile(int64_t t) const {
-    return Tile{slab + t * (int64_t)W * Cp, Cp};
+  __device__ __forceinline__ const float* row(int64_t t, int r) const {
+    return slab + (t * nrows + r) * (int64_t)Cp;
   }
 };
 
 // Returns 0, a cudaError_t from the launches, or -1 for arguments the
 // kernel does not take. Launches on `stream`; does not synchronise and
-// allocates nothing (partial is (n_tiles, Cp/128) scratch, or null with
-// checksum null).
+// allocates nothing (partial is (n_tiles, ceil(Cp/BW)) scratch, or null
+// with checksum null). table is ell_plan's (Cp,) int32 column table on the
+// device.
 extern "C" int packed_apply_launch(
     const float* slab, float* out, const void* const* locs,
-    const void* const* ws, const int* Ks, const int* c0s, const int* c1s,
-    int nm, const int* cus, const int* cvs, const int* ns, int nr,
+    const void* const* ws, const int* Ks, int nm, const int* table, int nr,
     const float* cosa, const float* sina, float* partial, float* checksum,
-    int n_tiles, int ntx, int W, int Cp, void* stream) {
+    int n_tiles, int ntx, int W, int Cp, int cend, int BW, int stage,
+    void* stream) {
   Methods M;
-  Windows R;
-  if (!ell_args(M, R, locs, ws, Ks, c0s, c1s, nm, cus, cvs, ns, nr, cosa,
-                sina, partial, checksum, n_tiles, Cp))
+  if (W < 1 || !ell_args(M, locs, ws, Ks, nm, table, nr, cosa, sina, partial,
+                         checksum, n_tiles, Cp, cend, BW))
     return -1;
   return ell_launch(SlabRows{slab, W, Cp}, out, cosa, sina, partial,
-                    checksum, M, R, n_tiles, ntx, Cp,
+                    checksum, M, table, n_tiles, ntx, Cp, cend, BW, stage,
                     static_cast<cudaStream_t>(stream));
 }

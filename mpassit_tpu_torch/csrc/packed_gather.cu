@@ -17,51 +17,42 @@
 //
 // What bounds it on an H100: device-memory writes of the output, as for
 // packed_apply.cu; the row reads go to src through one more indirection
-// (the chunk start, a warp-uniform broadcast load) and hit L1/L2 as the
-// slab reads do. The TPU kernel double-buffers each tile's chunk copies
-// into VMEM; the counterpart here (cp.async or TMA into shared memory) is
-// later work: at the restagger W8 is ~1300 rows x 128 columns x 4 B, more
-// than the 227 KB of shared memory a block can hold, so a staged design has
-// to split the columns.
+// (the chunk start, a warp-uniform broadcast load). The TPU kernel
+// double-buffers each tile's chunk copies into VMEM; here, where
+// ops/packed_kernel.ell_plan finds that a block's columns of the tile's
+// W8 chunk rows fit in shared memory, the block copies them there with
+// 16-byte cp.async before its sums; at the restaggers (W8 ~ 1300 rows)
+// they do not fit, and rows are read through L1/L2.
 
 #include "ell_apply.cuh"
 
 struct ChunkRows {
   const float* src;   // (n_src + 8, Cp)
   const int* ch;      // (n_tiles, NC) chunk starts divided by 8
-  int NC;
+  int nrows;          // W8 = 8 * NC
   int Cp;
-  struct Tile {
-    const float* src;
-    const int* ch;
-    int Cp;
-    __device__ __forceinline__ float operator()(int64_t r, int c) const {
-      const int64_t row = (int64_t)__ldg(ch + (r >> 3)) * 8 + (r & 7);
-      return __ldg(src + row * Cp + c);
-    }
-  };
-  __device__ __forceinline__ Tile tile(int64_t t) const {
-    return Tile{src, ch + t * NC, Cp};
+  __device__ __forceinline__ const float* row(int64_t t, int r) const {
+    const int64_t start = __ldg(ch + t * (nrows >> 3) + (r >> 3));
+    return src + (start * 8 + (r & 7)) * (int64_t)Cp;
   }
 };
 
 // Returns 0, a cudaError_t from the launches, or -1 for arguments the
 // kernel does not take. Launches on `stream`; does not synchronise and
-// allocates nothing (partial is (n_tiles, Cp/128) scratch, or null with
-// checksum null).
+// allocates nothing (partial is (n_tiles, ceil(Cp/BW)) scratch, or null
+// with checksum null).
 extern "C" int packed_gather_launch(
     const float* src, const int* ch, int NC, float* out,
-    const void* const* locs, const void* const* ws, const int* Ks,
-    const int* c0s, const int* c1s, int nm, const int* cus, const int* cvs,
-    const int* ns, int nr, const float* cosa, const float* sina,
-    float* partial, float* checksum, int n_tiles, int ntx, int Cp,
-    void* stream) {
+    const void* const* locs, const void* const* ws, const int* Ks, int nm,
+    const int* table, int nr, const float* cosa, const float* sina,
+    float* partial, float* checksum, int n_tiles, int ntx, int Cp, int cend,
+    int BW, int stage, void* stream) {
   Methods M;
-  Windows R;
-  if (NC < 1 || !ell_args(M, R, locs, ws, Ks, c0s, c1s, nm, cus, cvs, ns,
-                          nr, cosa, sina, partial, checksum, n_tiles, Cp))
+  if (NC < 1 || NC > (1 << 27) ||
+      !ell_args(M, locs, ws, Ks, nm, table, nr, cosa, sina, partial,
+                checksum, n_tiles, Cp, cend, BW))
     return -1;
-  return ell_launch(ChunkRows{src, ch, NC, Cp}, out, cosa, sina, partial,
-                    checksum, M, R, n_tiles, ntx, Cp,
+  return ell_launch(ChunkRows{src, ch, NC * 8, Cp}, out, cosa, sina, partial,
+                    checksum, M, table, n_tiles, ntx, Cp, cend, BW, stage,
                     static_cast<cudaStream_t>(stream));
 }

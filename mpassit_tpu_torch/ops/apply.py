@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mpassit_tpu.weights.ell import ELLWeights
+from ..weights.ell import ELLWeights
 
 
 def apply_ell(idx, w, src, out_dtype=None):

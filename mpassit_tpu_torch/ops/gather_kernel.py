@@ -28,9 +28,7 @@ import torch
 from . import _build
 from ._build import ints, ptr, ptrs
 from .packed_kernel import (
-    LANE,
-    MAX_METHODS,
-    MAX_WINDOWS,
+    _aligned,
     _check_ell,
     _check_layout,
     _ell_row,
@@ -38,6 +36,7 @@ from .packed_kernel import (
     _plain_rows,
     _route,
     _stream,
+    plan_on,
 )
 
 #: source rows per chunk of the chunked-run layout (matmul_apply._chunk_slab)
@@ -57,8 +56,8 @@ _lib = None
 BUILD_INFO: dict = {}
 
 _P, _I, _IP, _PP = _build.P, _build.I, _build.IP, _build.PP
-_ARGTYPES = [_P, _P, _I, _P, _PP, _PP, _IP, _IP, _IP, _I, _IP, _IP, _IP, _I,
-             _P, _P, _P, _P, _I, _I, _I, _P]
+_ARGTYPES = [_P, _P, _I, _P, _PP, _PP, _IP, _I, _P, _I, _P, _P, _P, _P, _I,
+             _I, _I, _I, _I, _I, _P]
 
 
 def build():
@@ -105,29 +104,24 @@ def packed_gather_apply(src, ch_src, locs, ws, *, W8, ranges, nty, ntx,
         return packed_gather_apply_plain(
             src, ch_src, locs, ws, W8=W8, ranges=ranges, nty=nty, ntx=ntx,
             rotate=rotate, cosa=cosa, sina=sina, with_checksum=with_checksum)
-    nm, nr = len(ranges), len(rotate)
-    if nm > MAX_METHODS or nr > MAX_WINDOWS:
-        raise ValueError(f"at most {MAX_METHODS} ranges and {MAX_WINDOWS} "
-                         f"rotate windows per launch")
-    src, ch_src = src.contiguous(), ch_src.contiguous()
-    locs = [a.contiguous() for a in locs]
-    ws = [a.contiguous() for a in ws]
+    src, ch_src, *locs = _aligned([src, ch_src, *locs])
+    ws = _aligned(ws)
     if rotate:
-        cosa, sina = cosa.contiguous(), sina.contiguous()
-    lib = build()
+        cosa, sina = _aligned([cosa, sina])
     n_tiles, NC = ch_src.shape
     Cp = src.shape[1]
-    out, partial, checksum = _outputs(dev, n_tiles, nty, ntx, Cp, Cp // LANE,
+    plan, table = plan_on(dev, n_tiles, W8, Cp, ranges, rotate)
+    lib = build()
+    out, partial, checksum = _outputs(dev, n_tiles, nty, ntx, Cp, plan.nblk,
                                       with_checksum)
     with torch.cuda.device(dev):
         rc = lib.packed_gather_launch(
             src.data_ptr(), ch_src.data_ptr(), NC, out.data_ptr(),
             ptrs(locs), ptrs(ws), ints([a.shape[1] for a in locs]),
-            ints([r[0] for r in ranges]), ints([r[1] for r in ranges]), nm,
-            ints([r[0] for r in rotate]), ints([r[1] for r in rotate]),
-            ints([r[2] for r in rotate]), nr,
+            len(ranges), table.data_ptr(), len(rotate),
             ptr(cosa if rotate else None), ptr(sina if rotate else None),
-            ptr(partial), ptr(checksum), n_tiles, ntx, Cp, _stream(dev))
+            ptr(partial), ptr(checksum), n_tiles, ntx, Cp, plan.cend,
+            plan.BW, plan.min_blocks, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"packed_gather_launch failed: rc={rc}")
     global LAUNCHES

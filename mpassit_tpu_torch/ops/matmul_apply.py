@@ -269,7 +269,7 @@ def _pack_union_cached(idx_w_fn, ny, nx, n_src, cache_dir=None,
     """Disk-cached ``_pack_compact(_pack_union(...))``, keyed by the ELLs'
     content fingerprints so any weight change invalidates. ``idx_w_fn`` is
     a thunk returning the (idx, w) K-concatenation, evaluated on a miss."""
-    from mpassit_tpu.diskcache import load_arrays, save_arrays
+    from ..diskcache import load_arrays, save_arrays
 
     path = None
     if cache_dir and ell_fps:
@@ -299,7 +299,7 @@ def _chunk_slab_cached(slab_idx, loc, loc_w, W, dst_shape, cache_dir=None,
     """Disk-cached ``_chunk_slab`` -> (ch_src, loc8, W8), its own entry
     (``torchgather_``) beside the pack's, keyed like it. Computed only on
     the gather route's first use: it is a per-tile Python loop."""
-    from mpassit_tpu.diskcache import load_arrays, save_arrays
+    from ..diskcache import load_arrays, save_arrays
 
     path = None
     if cache_dir and ell_fps:

@@ -23,6 +23,13 @@ The TPU kernel's ``precision`` argument has no counterpart: the sum is
 f32 multiplies and adds, which meets the tightest bound the JAX package
 documents for its apply (register R10, ~2e-7 max rel err).
 
+``ell_plan`` is the launch geometry of this kernel and of
+``ops/gather_kernel.py``'s (one CUDA template, ``csrc/ell_apply.cuh``) as a
+pure function, testable on the CPU: per column its method, role (plain,
+u, v or tail) and rotation partner, the table the kernel reads; per
+block its tile and column range; per launch the block width and whether
+the slab rows of a block's columns are staged in shared memory.
+
 The argument checks, the output allocation and the plain epilogue
 (rotation, checksum, unblock) here are shared by the other apply kernels
 (ops/onehot_kernel.py, ops/gather_kernel.py).
@@ -30,9 +37,12 @@ The argument checks, the output allocation and the plain epilogue
 
 from __future__ import annotations
 
+import functools
 import os
 import threading
+from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from . import _build
@@ -44,7 +54,26 @@ TILE = TY * TX
 LANE = 128          # column quantum (matches matmul_apply.LANE)
 CB = 256            # the TPU kernel's sub-chunk; bounds rotate windows
 MAX_METHODS = 8     # MAXM in csrc/ell_apply.cuh
-MAX_WINDOWS = 8     # MAXR in csrc/ell_apply.cuh
+MAX_WINDOWS = 8     # rotate windows per launch of the one-hot kernel
+#: column roles of the ell_plan table (ROLE_* in csrc/ell_apply.cuh)
+PLAIN, U, V, TAIL = 0, 1, 2, 3
+#: block widths in columns with staged rows, widest first (a thread owns 4
+#: columns of a 256-thread block, so the kernel takes 64, 128, 256 or 512).
+#: 128 measured faster than 256 and 64 at the CONUS pack
+#: (tools/ell_probe.py): the rotation window's columns, 4-5 times the work
+#: of the others, then spread over more and shorter blocks
+BLOCK_COLS = (128,)
+#: block width with rows read from device memory: 64 measured faster than
+#: 128 at the EDGE1 restagger (more blocks, two points per warp in flight)
+UNSTAGED_COLS = 64
+#: the most shared memory a block's staged rows may take: two such blocks
+#: fit on one SM of an H100
+STAGE_MAX = 96 * 1024
+#: shared memory of one H100 SM, what the card reserves per block, and
+#: the kernel's static shared memory (the checksum's reduction array)
+SMEM_SM = 228 * 1024
+SMEM_RESERVED = 1024
+NT_SMEM = 256 * 4
 
 #: kernel launches by ``packed_apply`` (one per call on a CUDA tensor)
 LAUNCHES = 0
@@ -61,8 +90,8 @@ _lib = None
 BUILD_INFO: dict = {}
 
 _P, _I, _IP, _PP = _build.P, _build.I, _build.IP, _build.PP
-_ARGTYPES = [_P, _P, _PP, _PP, _IP, _IP, _IP, _I, _IP, _IP, _IP, _I,
-             _P, _P, _P, _P, _I, _I, _I, _I, _P]
+_ARGTYPES = [_P, _P, _PP, _PP, _IP, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I,
+             _I, _I, _I, _I, _P]
 
 
 def build():
@@ -74,6 +103,150 @@ def build():
             _lib = _build.load(SOURCE, BUILD_DIR,
                                {"packed_apply_launch": _ARGTYPES}, BUILD_INFO)
         return _lib
+
+
+@dataclass(frozen=True)
+class EllPlan:
+    """The geometry of one launch of csrc/ell_apply.cuh (``ell_plan``)."""
+
+    n_tiles: int
+    W: int              # slab rows of a tile (W8 for the gather kernel)
+    Cp: int
+    BW: int             # columns per block
+    stage: bool         # the block's slab rows staged in shared memory
+    smem: int           # dynamic shared-memory bytes (0 without staging)
+    #: staged blocks one SM holds, 2 or 3, which the kernel's register
+    #: budget allows too (0 without staging): the launch's ``stage``
+    min_blocks: int
+    nblk: int           # blocks per tile
+    cend: int           # first tail column
+    method: tuple       # per column: its method, -1 in the tail
+    role: tuple         # per column: PLAIN, U, V or TAIL
+    partner: tuple      # per column: the window partner, -1 for none
+    table: tuple        # per column: the int entry the kernel reads
+
+    @property
+    def grid(self):
+        return self.n_tiles * self.nblk
+
+    def block(self, b):
+        """(tile, first column, end column) of block ``b``: the column
+        blocks of a tile are consecutive."""
+        t, j = divmod(b, self.nblk)
+        return t, j * self.BW, min((j + 1) * self.BW, self.Cp)
+
+    def partner_in_block(self, c):
+        """Whether column ``c``'s partner lies in ``c``'s own block (and so
+        among its staged rows); otherwise the kernel reads it from device
+        memory."""
+        p = self.partner[c]
+        return p >= 0 and p // self.BW == c // self.BW
+
+    def path(self, c0):
+        """The kernel's path for the thread owning columns [c0, c0 + 4):
+        "float4" (one method, or the tail, in all four, none rotated),
+        "window" (one method, window columns among them, every partner of
+        that method) or "scalar" (a method edge: each column alone)."""
+        cols = range(c0, c0 + 4)
+        m = self.method[c0]
+        if any(self.method[c] != m or (self.role[c] in (U, V) and
+                                       self.method[self.partner[c]] != m)
+               for c in cols):
+            return "scalar"
+        return ("window" if any(self.role[c] in (U, V) for c in cols)
+                else "float4")
+
+
+def _geometry(W, Cp):
+    """(BW, stage): the widest block whose staged rows fit STAGE_MAX, else
+    UNSTAGED_COLS columns, unstaged."""
+    for bw in BLOCK_COLS:
+        if bw <= Cp and W * bw * 4 <= STAGE_MAX:
+            return bw, True
+    return UNSTAGED_COLS, False
+
+
+def ell_plan(n_tiles, W, Cp, ranges, rotate=()):
+    """The launch geometry of ``packed_apply``/``packed_gather_apply`` on
+    a card, for ``n_tiles`` tiles of W slab rows, Cp columns, the method
+    column ``ranges`` and the ``(cu, cv, n)`` rotation windows. Raises
+    ValueError on what the kernel does not take: W < 1, Cp not a positive
+    multiple of 128, more than MAX_METHODS ranges, ranges that do not tile
+    [0, C <= Cp), windows that leave the methods' columns or share a
+    column, a grid over 2^31 - 1 blocks.
+
+    A rotated column computes its own sum and its partner's; where the
+    partner lies outside the column's block (``partner_in_block``), the
+    kernel reads the partner's rows from device memory, not from the
+    block's staged copy."""
+    ranges, rotate = tuple(map(tuple, ranges)), tuple(map(tuple, rotate))
+    if W < 1 or n_tiles < 1:
+        raise ValueError(f"W={W}, n_tiles={n_tiles}: both must be >= 1")
+    if Cp < LANE or Cp % LANE:
+        raise ValueError(f"column count {Cp} not a positive multiple of "
+                         f"{LANE}")
+    if not 1 <= len(ranges) <= MAX_METHODS:
+        raise ValueError(f"1 to {MAX_METHODS} ranges per launch")
+    method = [-1] * Cp
+    prev = 0
+    for m, (c0, c1) in enumerate(ranges):
+        if c0 != prev or c1 <= c0 or c1 > Cp:
+            raise ValueError(f"ranges must tile [0, C <= {Cp}) "
+                             f"contiguously: {ranges}")
+        method[c0:c1] = [m] * (c1 - c0)
+        prev = c1
+    cend = prev
+    role = [PLAIN] * cend + [TAIL] * (Cp - cend)
+    part = [-1] * Cp
+    for (cu, cv, n) in rotate:
+        if n < 1 or min(cu, cv) < 0 or max(cu, cv) + n > cend:
+            raise ValueError(f"rotate window {(cu, cv, n)} outside the "
+                             f"methods' columns [0, {cend})")
+        for i in range(n):
+            for c, p, rl in ((cu + i, cv + i, U), (cv + i, cu + i, V)):
+                if role[c] != PLAIN:
+                    raise ValueError(f"rotate windows share column {c}")
+                role[c], part[c] = rl, p
+    BW, stage = _geometry(W, Cp)
+    nblk = -(-Cp // BW)
+    if n_tiles * nblk > 2 ** 31 - 1:
+        raise ValueError(f"{n_tiles * nblk} blocks exceed the grid limit")
+    table = tuple(
+        (method[c] + 1) | (role[c] << 4)
+        | ((method[part[c]] + 1 if part[c] >= 0 else 0) << 6)
+        | (max(part[c], 0) << 10) for c in range(Cp))
+    smem = W * BW * 4 if stage else 0
+    min_blocks = (min(3, SMEM_SM // (smem + SMEM_RESERVED + NT_SMEM))
+                  if stage else 0)
+    return EllPlan(n_tiles=n_tiles, W=W, Cp=Cp, BW=BW, stage=stage,
+                   smem=smem, min_blocks=min_blocks, nblk=nblk, cend=cend,
+                   method=tuple(method), role=tuple(role),
+                   partner=tuple(part), table=table)
+
+
+@functools.lru_cache(maxsize=32)
+def _plan_on(dev, n_tiles, W, Cp, ranges, rotate, knobs):
+    """ell_plan and its table on ``dev``, once per geometry (and per
+    BLOCK_COLS, UNSTAGED_COLS and STAGE_MAX, which a probe may change): a
+    launch enqueues
+    the kernel without building either on the host."""
+    plan = ell_plan(n_tiles, W, Cp, ranges, rotate)
+    return plan, torch.tensor(np.asarray(plan.table, np.int32), device=dev)
+
+
+def plan_on(dev, n_tiles, W, Cp, ranges, rotate):
+    return _plan_on(dev, n_tiles, W, Cp, ranges, rotate,
+                    (BLOCK_COLS, UNSTAGED_COLS, STAGE_MAX))
+
+
+def _aligned(ts):
+    """The tensors, each contiguous and 16-byte aligned (the kernel's
+    loc/w, row and output accesses are 16 bytes wide)."""
+    out = []
+    for a in ts:
+        a = a.contiguous()
+        out.append(a if a.data_ptr() % 16 == 0 else a.clone())
+    return out
 
 
 def _validate_rotate(rotate, ranges, Cp):
@@ -182,28 +355,23 @@ def packed_apply(slab, locs, ws, *, ranges, nty, ntx, rotate=(), cosa=None,
         return packed_apply_plain(
             slab, locs, ws, ranges=ranges, nty=nty, ntx=ntx, rotate=rotate,
             cosa=cosa, sina=sina, with_checksum=with_checksum)
-    slab = slab.contiguous()
-    locs = [a.contiguous() for a in locs]
-    ws = [a.contiguous() for a in ws]
+    slab, *locs = _aligned([slab, *locs])
+    ws = _aligned(ws)
     if rotate:
-        cosa, sina = cosa.contiguous(), sina.contiguous()
-    nm, nr = len(ranges), len(rotate)
-    if nm > MAX_METHODS or nr > MAX_WINDOWS:
-        raise ValueError(f"at most {MAX_METHODS} ranges and {MAX_WINDOWS} "
-                         f"rotate windows per launch")
-    lib = build()
+        cosa, sina = _aligned([cosa, sina])
     n_tiles, W, Cp = slab.shape
-    out, partial, checksum = _outputs(dev, n_tiles, nty, ntx, Cp, Cp // LANE,
+    plan, table = plan_on(dev, n_tiles, W, Cp, ranges, rotate)
+    lib = build()
+    out, partial, checksum = _outputs(dev, n_tiles, nty, ntx, Cp, plan.nblk,
                                       with_checksum)
     with torch.cuda.device(dev):
         rc = lib.packed_apply_launch(
             slab.data_ptr(), out.data_ptr(), ptrs(locs), ptrs(ws),
-            ints([a.shape[1] for a in locs]), ints([r[0] for r in ranges]),
-            ints([r[1] for r in ranges]), nm,
-            ints([r[0] for r in rotate]), ints([r[1] for r in rotate]),
-            ints([r[2] for r in rotate]), nr,
-            ptr(cosa if rotate else None), ptr(sina if rotate else None),
-            ptr(partial), ptr(checksum), n_tiles, ntx, W, Cp, _stream(dev))
+            ints([a.shape[1] for a in locs]), len(ranges), table.data_ptr(),
+            len(rotate), ptr(cosa if rotate else None),
+            ptr(sina if rotate else None), ptr(partial), ptr(checksum),
+            n_tiles, ntx, W, Cp, plan.cend, plan.BW, plan.min_blocks,
+            _stream(dev))
     if rc != 0:
         raise RuntimeError(f"packed_apply_launch failed: rc={rc}")
     global LAUNCHES

@@ -19,7 +19,7 @@ import logging
 
 import numpy as np
 
-log = logging.getLogger("mpassit_tpu")
+log = logging.getLogger("mpassit_tpu_torch")
 
 #: |cosa| below this (|alpha| > ~84 deg) warns: the Q4 divisions amplify
 #: f32 rounding by ~1/cosa^2 (register R11)

@@ -3,8 +3,9 @@
 Sequence mirrors mpassit.F90:105-137: read namelist -> build target grid ->
 ingest MPAS mesh -> read fields -> generate/cache weights -> apply on the
 device -> wind fixups -> write WRF-compatible NetCDF. Method routing, the
-quirks and the host layers (config, grids, mesh, weights, io) are the JAX
-package's own, imported; only the device-bound layers are ported.
+quirks and the host layers (config, grids, mesh, weights, io) are copies
+of the JAX package's, kept in this package with the same cache key and
+file format; the device-bound layers are ported.
 
 The device is explicit: ``run_pipeline(cfg, device)`` places every
 operator and apply on ``device``; ``main`` takes it from
@@ -24,33 +25,33 @@ import time
 import numpy as np
 import torch
 
-from mpassit_tpu.config import Config
-from mpassit_tpu.constants import PROJ_LC
-from mpassit_tpu.errors import FatalError
-from mpassit_tpu.fields.registry import Routing, build_routing
-from mpassit_tpu.grids.target import TargetGrid, build_target_grid
-from mpassit_tpu.io.mpas_reader import (
+from ..config import Config
+from ..constants import PROJ_LC
+from ..errors import FatalError
+from ..fields.registry import Routing, build_routing
+from ..grids.target import TargetGrid, build_target_grid
+from ..io.mpas_reader import (
     InputData,
     read_diag_data,
     read_hist_data,
 )
-from mpassit_tpu.io.wrf_writer import RegridResult, write_output
-from mpassit_tpu.mesh.mpas import MPASMesh, mesh_from_file
-from mpassit_tpu.weights.bilinear import (
+from ..io.wrf_writer import RegridResult, write_output
+from ..mesh.mpas import MPASMesh, mesh_from_file
+from ..weights.bilinear import (
     bilinear_cell_weights,
     bilinear_vertex_weights,
 )
-from mpassit_tpu.weights.cache import WeightCache, grid_fingerprint
-from mpassit_tpu.weights.conservative import conservative_weights
-from mpassit_tpu.weights.ell import ELLWeights
-from mpassit_tpu.weights.nearest import nearest_weights
-from mpassit_tpu.weights.restagger import edge1_weights, edge2_weights
+from ..weights.cache import WeightCache, grid_fingerprint
+from ..weights.conservative import conservative_weights
+from ..weights.ell import ELLWeights
+from ..weights.nearest import nearest_weights
+from ..weights.restagger import edge1_weights, edge2_weights
 
 from ..ops.apply import Regridder
 from ..ops.matmul_apply import PackedSlabRegridder, SlabMatmulRegridder
 from ..ops.rotate import check_rotation_angles, rotate_winds
 
-log = logging.getLogger("mpassit_tpu")
+log = logging.getLogger("mpassit_tpu_torch")
 
 
 @dataclasses.dataclass
@@ -438,7 +439,7 @@ def _run_pipeline(cfg: Config, device, dtype) -> PipelineArtifacts:
     # Reference parity: block_decomp_file is validated when provided
     # (model_grid.F90:437); it decomposes nothing here.
     if cfg.block_decomp_file != "NULL":
-        from mpassit_tpu.parallel.decomp import read_block_decomp_file
+        from ..parallel.decomp import read_block_decomp_file
 
         read_block_decomp_file(cfg.block_decomp_file, mesh.ncells)
 
@@ -464,7 +465,7 @@ def _run_pipeline(cfg: Config, device, dtype) -> PipelineArtifacts:
     # slab gather reads a compact span of source rows; vertex-located
     # fields keep their vertex numbering. Results are unchanged.
     if cfg.cell_order == "morton":
-        from mpassit_tpu.mesh.reorder import (
+        from ..mesh.reorder import (
             apply_perm,
             reorder_cells_by_latitude,
             reorder_cells_morton,

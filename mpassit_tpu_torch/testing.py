@@ -3,7 +3,7 @@
 The JAX package's synthetic writers (``mesh/synthetic.py``) write
 NetCDF4/HDF5 through h5py. These write the same variables, dimensions and
 attributes as CDF-2 ("64-bit offset") files with ``scipy.io.netcdf_file``
-— plain numpy and scipy — which the shared reader (``io/nc4.open_dataset``)
+— plain numpy and scipy — which the port's reader (``io/nc4.open_dataset``)
 reads without HDF5. ``chip_smoke.py`` uses them on machines without h5py;
 the tests drive the port on their files.
 

@@ -26,7 +26,7 @@ Output is one JSON line per variant, one for the checks and a final
 summary line; the exit code is 1 without a CUDA device or when a check
 fails.
 
-The problem is built with the shared host layers only (no JAX): the
+The problem is built with the port's own host layers (no JAX): the
 configuration of ``bench.build_conus_problem``, its on-disk mesh cache, the
 Morton renumbering and the ``WeightCache``. Only the bilinear operator is
 built; the JAX tool also builds nearest and conservative weights that it
@@ -62,8 +62,8 @@ TOL_V1_V0 = 3e-5
 def _cached_mesh(cache_dir, ncells, nz, nsoil, seed=1):
     """Synthetic mesh memoized to disk in bench.py's format and file name
     (SphericalVoronoi at 2.6M cells is minutes of host time)."""
-    from mpassit_tpu.mesh.mpas import MPASMesh
-    from mpassit_tpu.mesh.synthetic import synthetic_voronoi_mesh
+    from ..mesh.mpas import MPASMesh
+    from ..mesh.synthetic import synthetic_voronoi_mesh
 
     path = os.path.join(cache_dir, f"mesh_{ncells}_{nz}_{nsoil}_{seed}.npz")
     if os.path.exists(path):
@@ -92,11 +92,11 @@ def build_problem(ncells, nx, ny, cache_dir, nz=2, nsoil=1):
     """The bilinear operator of a synthetic ``ncells`` mesh, Morton
     renumbered, onto an nx x ny Lambert grid at bench.py's 3-km CONUS
     settings (dx scaled by 1801/nx). Returns (ell, info)."""
-    from mpassit_tpu.config import Config
-    from mpassit_tpu.grids.target import build_target_grid
-    from mpassit_tpu.mesh.reorder import reorder_cells_morton
-    from mpassit_tpu.weights.bilinear import bilinear_cell_weights
-    from mpassit_tpu.weights.cache import WeightCache, grid_fingerprint
+    from ..config import Config
+    from ..grids.target import build_target_grid
+    from ..mesh.reorder import reorder_cells_morton
+    from ..weights.bilinear import bilinear_cell_weights
+    from ..weights.cache import WeightCache, grid_fingerprint
 
     cfg = Config.from_dict({
         "target_grid_type": "lambert", "nx": nx + 1, "ny": ny + 1,

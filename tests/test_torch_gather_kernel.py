@@ -270,6 +270,32 @@ def test_cuda_kernel_matches_plain_and_packed_apply(cuda_device, checksum):
     assert torch.equal(got, k1)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("checksum", [False, True])
+@pytest.mark.parametrize("case", [
+    "unaligned_window", "range_end_off_4", "window_across_block",
+    "unstaged_W", "cp128", "cp1024", "conservative_max_K"])
+def test_cuda_kernel_bit_for_bit(cuda_device, case, checksum):
+    """On the card, the geometries of tests/test_torch_packed_kernel.py's
+    CARD_CASES: the gather kernel equals its plain version and the
+    packed_apply kernel on the same rows bit for bit (checksums too)."""
+    from test_torch_packed_kernel import card_operands
+
+    P = card_operands(case, cuda_device)
+    kw = dict(P["kw"], with_checksum=checksum)
+    args = (P["src"], P["ch"], P["locs8"], P["ws8"])
+    got = gk.packed_gather_apply(*args, W8=P["W8"], **kw)
+    torch.cuda.synchronize()
+    ref = gk.packed_gather_apply_plain(*args, W8=P["W8"], **kw)
+    k1 = pk.packed_apply(P["slab"], P["locs"], P["ws"], **kw)
+    if checksum:
+        (got, gcs), (ref, rcs), (k1, kcs) = got, ref, k1
+        torch.testing.assert_close(gcs, rcs, rtol=1e-5, atol=0)
+        assert torch.equal(gcs, kcs)
+    assert torch.equal(got, ref)
+    assert torch.equal(got, k1)
+
+
 @pytest.mark.parametrize("module", ["gather_kernel", "onehot_kernel"])
 def test_failed_build_raises(tmp_path, monkeypatch, module):
     """No nvcc, or an nvcc that fails: build() raises, leaves no library

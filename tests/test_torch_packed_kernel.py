@@ -215,3 +215,95 @@ def test_cuda_kernel_matches_plain(cuda_device, checksum):
         torch.testing.assert_close(gcs, rcs, rtol=1e-5, atol=0)
     assert torch.isfinite(got).all()
     assert (got - ref).abs().max() <= 1e-6 * ref.abs().max()
+
+
+#: card cases of the ELL template (csrc/ell_apply.cuh), shared with
+#: tests/test_torch_gather_kernel.py: name -> (nty, ntx, W, Cp, ranges, Ks,
+#: rotate). W is rounded up to a multiple of 8 (the gather layout's W8).
+CARD_CASES = {
+    # the smoke pack's window: columns 52-55 are u, u, u, v
+    "unaligned_window": (2, 3, 40, 256, ((0, 150), (150, 160), (160, 256)),
+                         (3, 1, 4), ((0, 55, 55),)),
+    # method edges inside a thread's 4 columns, a window at an edge
+    "range_end_off_4": (2, 2, 24, 384, ((0, 130), (130, 259)), (3, 2),
+                        ((130, 133, 2),)),
+    # partners across the 256-column block edge
+    "window_across_block": (1, 3, 24, 512, ((0, 200), (200, 500)), (3, 2),
+                            ((250, 262, 10),)),
+    # rows over the staging limit: read through L1/L2
+    "unstaged_W": (2, 2, 400, 256, ((0, 200),), (4,), ((10, 60, 50),)),
+    "cp128": (2, 3, 40, 128, ((0, 100),), (3,), ((0, 40, 30),)),
+    "cp1024": (2, 3, 40, 1024, ((0, 992), (992, 1008), (1008, 1024)),
+               (3, 1, 4), ((0, 55, 55),)),
+}
+
+
+def card_operands(case, dev, seed=5):
+    """Operands of a card case for both ELL kernels: the slab and its
+    (locs, ws), and the same rows as a source with chunk starts (ch) and
+    the gather layout's (locs8, ws8). ``conservative_max_K`` is the
+    conservative operator of a 12,000-cell mesh on a 16 x 12 grid of
+    500-km cells (K = 16, one tile of W = 1144 rows), built with the port's
+    host layers."""
+    if case == "conservative_max_K":
+        from mpassit_tpu_torch.config import Config
+        from mpassit_tpu_torch.grids.target import build_target_grid
+        from mpassit_tpu_torch.mesh.synthetic import synthetic_voronoi_mesh
+        from mpassit_tpu_torch.ops.matmul_apply import SlabMatmulRegridder
+        from mpassit_tpu_torch.weights.conservative import (
+            conservative_weights,
+        )
+
+        mesh = synthetic_voronoi_mesh(ncells=12000, nz=1, nsoil=1, seed=2)
+        grid = build_target_grid(Config.from_dict({
+            "target_grid_type": "lambert", "nx": 17, "ny": 13, "dx": 500e3,
+            "dy": 500e3, "ref_lat": 38.5, "ref_lon": -97.5,
+            "truelat1": 38.5, "stand_lon": -97.5}))
+        ell = conservative_weights(mesh, grid)
+        assert ell.k >= 12, ell.k
+        rg = SlabMatmulRegridder(ell, dev)
+        Cp, ranges = 256, ((0, 200),)
+        src = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+            (rg.n_src, Cp)).astype(np.float32)).to(dev)
+        slab = torch.index_select(src, 0, rg.slab_idx).view(
+            rg.n_tiles, rg.W, Cp)
+        locs, ws = rg._ell_dev()
+        ch, locs8, ws8 = rg._gather_dev()
+        return dict(slab=slab, locs=locs, ws=ws, ch=ch, locs8=locs8,
+                    ws8=ws8, W8=rg.W8,
+                    src=torch.nn.functional.pad(src, (0, 0, 0, 8)),
+                    kw=dict(ranges=ranges, nty=rg.nty, ntx=rg.ntx))
+    nty, ntx, W, Cp, ranges, Ks, rotate = CARD_CASES[case]
+    rng = np.random.default_rng(seed)
+    n_tiles, NC, n_src = nty * ntx, -(-W // 8), 600
+    T = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    src = T(rng.standard_normal((n_src + 8, Cp)).astype(np.float32))
+    ch = T(rng.integers(0, n_src // 8 + 1, (n_tiles, NC)).astype(np.int32))
+    rows = (ch.long()[:, :, None] * 8
+            + torch.arange(8, device=dev)).reshape(n_tiles, 8 * NC)
+    _, locs, ws, cosa, sina = _problem(seed, nty, ntx, 8 * NC, 8, Ks)
+    locs, ws = tuple(map(T, locs)), tuple(map(T, ws))
+    return dict(slab=src[rows], locs=locs, ws=ws, ch=ch, locs8=locs,
+                ws8=ws, W8=8 * NC, src=src,
+                kw=dict(ranges=ranges, nty=nty, ntx=ntx, rotate=rotate,
+                        cosa=T(cosa), sina=T(sina)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("checksum", [False, True])
+@pytest.mark.parametrize("case", [*CARD_CASES, "conservative_max_K"])
+def test_cuda_kernel_bit_for_bit(cuda_device, case, checksum):
+    """On the card, each geometry of the redesigned template (window
+    groups, method edges inside 4 columns, partners across a block edge,
+    staged and unstaged rows, Cp = 128 and 1024, the conservative
+    operator's K): the output equals the plain version's bit for bit;
+    checksums rtol 1e-5 (another order of f32 sums)."""
+    P = card_operands(case, cuda_device)
+    kw = dict(P["kw"], with_checksum=checksum)
+    got = pk.packed_apply(P["slab"], P["locs"], P["ws"], **kw)
+    torch.cuda.synchronize()
+    ref = pk.packed_apply_plain(P["slab"], P["locs"], P["ws"], **kw)
+    if checksum:
+        (got, gcs), (ref, rcs) = got, ref
+        torch.testing.assert_close(gcs, rcs, rtol=1e-5, atol=0)
+    assert torch.equal(got, ref)

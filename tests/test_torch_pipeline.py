@@ -19,6 +19,7 @@ import torch
 
 from mpassit_tpu.io.nc4 import open_dataset
 from mpassit_tpu.run.pipeline import run_pipeline as jax_run
+from mpassit_tpu_torch.config import Config as PortConfig
 from mpassit_tpu_torch.ops import gather_kernel as gk
 from mpassit_tpu_torch.ops import onehot_kernel as ok
 from mpassit_tpu_torch.ops import packed_kernel as pk
@@ -41,6 +42,13 @@ def _threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(n)
+
+
+def _port(cfg):
+    """The port's own Config with the fields of the reference's ``cfg``
+    (make_case builds the reference's)."""
+    return PortConfig(**{f.name: getattr(cfg, f.name)
+                         for f in dataclasses.fields(cfg)})
 
 
 def _arrays(res):
@@ -75,7 +83,7 @@ def f32_runs(tmp_path_factory):
     jax_out = cfg.output_file
     cfg.output_file = str(d / "out_torch.nc")
     plain = pk.PLAIN_CALLS
-    got = tpipe.run_pipeline(cfg, device="cpu")
+    got = tpipe.run_pipeline(_port(cfg), device="cpu")
     n_plain = pk.PLAIN_CALLS - plain
     return d, mesh, cfg, hist, diag, ref, got, jax_out, n_plain
 
@@ -101,7 +109,7 @@ def test_onehot_route_matches_jax(tmp_path, monkeypatch):
     ref = jax_run(cfg, jnp.float32)
     cfg.output_file = str(tmp_path / "out_torch.nc")
     p0, o0, g0 = pk.PLAIN_CALLS, dict(ok.PLAIN_CALLS), gk.PLAIN_CALLS
-    got = tpipe.run_pipeline(cfg, device="cpu")
+    got = tpipe.run_pipeline(_port(cfg), device="cpu")
     assert pk.PLAIN_CALLS == p0 and gk.PLAIN_CALLS == g0
     assert ok.PLAIN_CALLS == {
         "onehot_apply": o0["onehot_apply"] + 3,
@@ -121,7 +129,7 @@ def test_gather_route_matches_jax_and_default(tmp_path, monkeypatch,
     ref = jax_run(cfg, jnp.float32)
     cfg.output_file = str(tmp_path / "out_torch.nc")
     p0, o0, g0 = pk.PLAIN_CALLS, dict(ok.PLAIN_CALLS), gk.PLAIN_CALLS
-    got = tpipe.run_pipeline(cfg, device="cpu")
+    got = tpipe.run_pipeline(_port(cfg), device="cpu")
     assert gk.PLAIN_CALLS == g0 + 4
     assert pk.PLAIN_CALLS == p0 and ok.PLAIN_CALLS == o0
     _assert_results_close(got.result, ref.result)
@@ -155,7 +163,7 @@ def test_f64_matches_jax(tmp_path):
                                 cfg_overrides={"compute_dtype": "float64"})
     ref = jax_run(cfg, jnp.float64)
     cfg.output_file = str(tmp_path / "out_torch.nc")
-    got = tpipe.run_pipeline(cfg, device="cpu")
+    got = tpipe.run_pipeline(_port(cfg), device="cpu")
     assert got.result.u.dtype == np.float64
     _assert_results_close(got.result, ref.result, rtol=1e-12)
 
@@ -169,7 +177,7 @@ def test_namelist_variants_match_jax(tmp_path, override):
     mesh, cfg, _, _ = make_case(tmp_path, cfg_overrides=override)
     ref = jax_run(cfg, jnp.float32)
     cfg.output_file = str(tmp_path / "out_torch.nc")
-    got = tpipe.run_pipeline(cfg, device="cpu")
+    got = tpipe.run_pipeline(_port(cfg), device="cpu")
     _assert_results_close(got.result, ref.result)
 
 
@@ -197,7 +205,7 @@ def test_classic_inputs_match_netcdf4_inputs(f32_runs):
         diag_file_input_grid=str(c / "diag.nc"),
         hist_file_input_grid=str(c / "hist.nc"),
         output_file=str(c / "out.nc"))
-    art = tpipe.run_pipeline(ccfg, device="cpu")
+    art = tpipe.run_pipeline(_port(ccfg), device="cpu")
     a, b = _arrays(art.result), _arrays(got.result)
     for k in b:
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
@@ -214,7 +222,7 @@ def test_no_pack_rotates_post_hoc(tmp_path, monkeypatch, f32_runs):
     *_, got, _, _ = f32_runs
     mesh, cfg, _, _ = make_case(tmp_path)
     monkeypatch.setenv("MPASSIT_NO_PACK", "1")
-    art = tpipe.run_pipeline(cfg, device="cpu")
+    art = tpipe.run_pipeline(_port(cfg), device="cpu")
     a, b = _arrays(art.result), _arrays(got.result)
     for k in b:
         np.testing.assert_allclose(a[k], b[k], rtol=1e-6, atol=1e-6,
@@ -227,7 +235,7 @@ def test_interp_as_bundle_false_and_dump(tmp_path, monkeypatch, f32_runs):
     cfg.interp_as_bundle = False
     dump = tmp_path / "dump.npz"
     monkeypatch.setenv("MPASSIT_DUMP_RESULT", str(dump))
-    art = tpipe.run_pipeline(cfg, device="cpu")
+    art = tpipe.run_pipeline(_port(cfg), device="cpu")
     assert [n for n, *_ in art.result.cons2d] == \
         [n for n, *_ in got.result.cons2d]
     for (_, a, *_), (_, b, *_) in zip(art.result.cons2d, got.result.cons2d):
@@ -274,7 +282,7 @@ def test_unported_options_raise(tmp_path, monkeypatch, override, env):
     if env:
         monkeypatch.setenv(*env)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tpipe.run_pipeline(cfg, device="cpu")
+        tpipe.run_pipeline(_port(cfg), device="cpu")
 
 
 def test_multiprocess_env_raises(monkeypatch):

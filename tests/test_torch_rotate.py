@@ -86,7 +86,7 @@ def test_check_rotation_angles_warns_like_jax(caplog, cosa, warns):
     """Same threshold (|cosa| < 0.1), same message, same return value."""
     assert trot.COSA_WARN == jrot.COSA_WARN == 0.1
     cosa = np.asarray(cosa)
-    with caplog.at_level(logging.WARNING, logger="mpassit_tpu"):
+    with caplog.at_level(logging.WARNING, logger="mpassit_tpu_torch"):
         m = trot.check_rotation_angles(cosa, name="unit test grid")
     port_msgs = [r.message for r in caplog.records]
     caplog.clear()
