@@ -58,6 +58,8 @@
 
 #include <type_traits>
 
+#include "cp_async.cuh"
+
 #define TY 32
 #define TX 32
 #define TILE 1024
@@ -83,16 +85,6 @@ __device__ __forceinline__ int ci_method(int e) { return (e & 15) - 1; }
 __device__ __forceinline__ int ci_role(int e) { return (e >> 4) & 3; }
 __device__ __forceinline__ int ci_pmethod(int e) { return ((e >> 6) & 15) - 1; }
 __device__ __forceinline__ int ci_partner(int e) { return e >> 10; }
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
-}
 
 __device__ __forceinline__ float4 ldg4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
@@ -225,9 +217,10 @@ ell_apply_kernel(Rows rows, float* __restrict__ out,
     const int total = rows.nrows * ng;
     for (int i = threadIdx.x; i < total; i += NT) {
       const int r = i / ng, g = i - r * ng;
-      cp_async16(stage + r * BW + 4 * g, rows.row(t, r) + cb0 + 4 * g);
+      cp_async16(stage + r * BW + 4 * g, rows.row(t, r) + cb0 + 4 * g, 16);
     }
-    cp_async_wait_all();
+    cp_async_commit();
+    cp_async_wait<0>();
     __syncthreads();
   }
   const View<Rows, STAGED != 0> v{rows, stage, t, cb0, BW};

@@ -16,7 +16,7 @@
 //       split6_bf16, highest: A0 S0 + A0 S1 + A1 S0 + A0 S2 + A1 S1 + A2 S0
 //
 // with b0 = bf16_rn(x), b1 = bf16_rn(x - b0), b2 = bf16_rn(x - b0 - b1)
-// (hi = b0, lo = b1; split<> of bf16_terms.cuh, as matmul_apply
+// (hi = b0, lo = b1; split_pair of bf16_terms.cuh, as matmul_apply
 // ._split_hilo/_split_3way round). `highest` is the six-term set: the JAX
 // package's highest is "f32 operands at Precision.HIGHEST (XLA's own
 // bf16_6x, six MXU passes)" (mpassit_tpu/ops/matmul_apply.py:74-79), the

@@ -8,25 +8,29 @@ Replaces the functionality the reference consumes from netcdf-fortran/NetCDF-C
 - NetCDF4 files are HDF5; we read/write them through h5py using the standard
   netCDF4-on-HDF5 conventions (dimension scales, ``_Netcdf4Dimid``,
   ``DIMENSION_LIST``) so files interoperate with the netCDF-C library.
-- Classic-format files (CDF-1/2, common for MPAS history streams) are read
-  through scipy.io.netcdf_file.
-- CDF-5 files (the 64-bit-data classic variant production MPAS runs write
-  for >4 GiB variables) are read by the pure-Python ``_CDF5Reader`` below —
-  scipy only understands CDF-1/2.
+- Classic-format files (CDF-1/2, common for MPAS history streams, and
+  CDF-5, the 64-bit-data variant production MPAS runs write for >4 GiB
+  variables) are read by the pure-Python ``_CDFReader`` below, from an
+  mmap: no h5py, and no 2-GiB limit on record data.
 """
 
 from __future__ import annotations
 
+import sys
+
 import numpy as np
 
 _HDF5_MAGIC = b"\x89HDF\r\n\x1a\n"
-_CDF_MAGICS = (b"CDF\x01", b"CDF\x02")   # scipy-readable; CDF\x05 has its own reader
+#: classic-format magic -> version byte (CDF-1 32-bit offsets, CDF-2 64-bit
+#: offsets, CDF-5 64-bit data)
+_CDF_VERSIONS = {b"CDF\x01": 1, b"CDF\x02": 2, b"CDF\x05": 5}
 
 
 def _decode(v):
-    import h5py
-
-    if isinstance(v, h5py.Empty):  # null dataspace = zero-length text attr
+    # h5py.Empty (a null dataspace: a zero-length text attribute) can only
+    # come from a file h5py opened, so h5py is never imported here
+    h5py = sys.modules.get("h5py")
+    if h5py is not None and isinstance(v, h5py.Empty):
         return ""
     if isinstance(v, bytes):
         return v.decode("utf-8", "replace")
@@ -41,105 +45,53 @@ def _decode(v):
     return v
 
 
-class _ClassicReader:
-    """Read-only adapter over scipy.io.netcdf_file for CDF-1/2 files."""
-
-    def __init__(self, path: str):
-        from scipy.io import netcdf_file
-
-        self._f = netcdf_file(path, "r", mmap=False)
-
-    def close(self):
-        self._f.close()
-
-    def dim_size(self, name: str) -> int:
-        n = self._f.dimensions[name]
-        if n is None:  # unlimited: infer from a variable using it
-            for v in self._f.variables.values():
-                if name in v.dimensions:
-                    return v.shape[list(v.dimensions).index(name)]
-            return 0
-        return n
-
-    def has_dim(self, name):
-        return name in self._f.dimensions
-
-    def dim_names(self):
-        return list(self._f.dimensions)
-
-    def has_var(self, name: str) -> bool:
-        return name in self._f.variables
-
-    def var_names(self):
-        return list(self._f.variables)
-
-    def var_dims(self, name: str):
-        return list(self._f.variables[name].dimensions)
-
-    def read_var(self, name: str):
-        return np.asarray(self._f.variables[name][...])
-
-    def var_attrs(self, name: str):
-        v = self._f.variables[name]
-        return {k: _decode(val) for k, val in v._attributes.items()}
-
-    def get_attr(self, name: str, default=KeyError):
-        try:
-            return _decode(self._f._attributes[name])
-        except KeyError:
-            if default is KeyError:
-                raise
-            return default
-
-    def global_attr_names(self):
-        return list(self._f._attributes)
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *a):
-        self.close()
-
-
-# ---- CDF-5 (64-bit data classic format) reader ----------------------------
-# Spec: the pnetcdf "CDF-5 file format specification" — the CDF-2 layout
-# with every NON_NEG count/size/offset (numrecs, nelems, name lengths, dim
-# lengths, DIMIDS, vsize, begin) widened to int64, plus the unsigned/64-bit
-# external types. Verified byte-for-byte against files written by the
-# system libnetcdf (tests/test_nc4_cdf5.py).
+# ---- classic-format (CDF-1, CDF-2, CDF-5) reader ---------------------------
+# Spec: Unidata's "NetCDF Classic and 64-bit Offset Format" and the pnetcdf
+# "CDF-5 file format specification". The three differ only in field widths:
+# CDF-1 and CDF-2 write every count, length, dimid and vsize (NON_NEG) as
+# int32 and `begin` as int32 (CDF-1) or int64 (CDF-2); CDF-5 widens all of
+# them to int64 and adds the unsigned/64-bit external types 7-11. Checked
+# against scipy's reader of CDF-1/2 and against the JAX package's CDF-5
+# reader, itself checked against libnetcdf (tests/test_torch_nc4_classic.py,
+# tests/test_nc4_cdf5.py).
 
 _NC_TYPES = {
     1: ("b", 1), 2: ("S1", 1), 3: (">i2", 2), 4: (">i4", 4),
     5: (">f4", 4), 6: (">f8", 8), 7: ("u1", 1), 8: (">u2", 2),
     9: (">u4", 4), 10: (">i8", 8), 11: (">u8", 8),
 }
-_STREAMING = 0xFFFFFFFFFFFFFFFF
 
 
-class _CDF5Reader:
-    """Read-only pure-Python CDF-5 parser (same protocol as the other
-    readers). Header is parsed eagerly; variable data is read lazily from
-    the open file at each ``read_var`` (record variables gathered across
-    their per-record slots)."""
+class _CDFReader:
+    """Read-only pure-Python parser of CDF-1, CDF-2 and CDF-5 files (same
+    protocol as the other readers). The header is parsed eagerly; variable
+    data is read lazily from a read-only mmap of the file at each
+    ``read_var`` (record variables gathered across their per-record
+    slots), so record data past 2 GiB and variables past 4 GiB read like
+    any other. For CDF-1/2 it returns what scipy.io.netcdf_file did: the
+    same big-endian arrays, text attributes with trailing NULs stripped,
+    one-element numeric attributes as Python scalars."""
 
     def __init__(self, path: str):
         import mmap
 
-        # mmap, not read(): CDF-5 exists precisely because variables exceed
-        # 4 GiB — eager reads would materialize the whole file in RAM.
-        # np.frombuffer reads lazily from the mapping.
         self._fh = open(path, "rb")
         buf = mmap.mmap(self._fh.fileno(), 0, access=mmap.ACCESS_READ)
-        if buf[:4] != b"CDF\x05":
-            raise ValueError(f"{path}: not a CDF-5 file")
+        self.version = _CDF_VERSIONS.get(bytes(buf[:4]))
+        if self.version is None:
+            buf.close()
+            self._fh.close()
+            raise ValueError(f"{path}: not a classic-format NetCDF file")
         self._buf = buf
-        pos = 4
-        self.numrecs, pos = self._i8(pos)
+        self._nw = 8 if self.version == 5 else 4     # NON_NEG width
+        self._bw = 4 if self.version == 1 else 8     # `begin` width
+        self.numrecs, pos = self._int(4, self._nw)
         self.dims, pos = self._dim_list(pos)       # [(name, length), ...]
         self._gatts, pos = self._att_list(pos)
         self.vars, pos = self._var_list(pos)       # name -> dict
-        # record size = sum of record-var vsizes; the single-record-var
-        # special case uses the UNPADDED size (spec: no inter-record pad)
+        # record size = sum of record-var slots (vsize: each variable's
+        # bytes padded to 4); the single-record-var special case uses the
+        # UNPADDED size (spec: no inter-record pad)
         rec_vars = [v for v in self.vars.values() if v["record"]]
         self._recsize = sum(v["vsize"] for v in rec_vars)
         if len(rec_vars) == 1:
@@ -147,7 +99,7 @@ class _CDF5Reader:
             n = int(np.prod([self.dims[d][1] for d in v["dimids"][1:]],
                             dtype=np.int64)) if len(v["dimids"]) > 1 else 1
             self._recsize = n * _NC_TYPES[v["nc_type"]][1]
-        if self.numrecs == _STREAMING:  # infer from file size
+        if self.numrecs == (1 << (8 * self._nw)) - 1:  # streaming
             if rec_vars and self._recsize:
                 first = min(v["begin"] for v in rec_vars)
                 self.numrecs = (len(buf) - first) // self._recsize
@@ -155,61 +107,66 @@ class _CDF5Reader:
                 self.numrecs = 0
 
     # -- primitive parsers --
-    def _i4(self, pos):
-        return int.from_bytes(self._buf[pos:pos + 4], "big"), pos + 4
-
-    def _i8(self, pos):
-        return int.from_bytes(self._buf[pos:pos + 8], "big"), pos + 8
+    def _int(self, pos, width):
+        return int.from_bytes(self._buf[pos:pos + width], "big"), pos + width
 
     def _name(self, pos):
-        n, pos = self._i8(pos)
+        n, pos = self._int(pos, self._nw)
         s = self._buf[pos:pos + n].decode("utf-8", "replace")
         return s, pos + n + ((-n) % 4)
 
     def _dim_list(self, pos):
-        tag, pos = self._i4(pos)
-        n, pos = self._i8(pos)
+        tag, pos = self._int(pos, 4)
+        n, pos = self._int(pos, self._nw)
         dims = []
         for _ in range(n):
             name, pos = self._name(pos)
-            ln, pos = self._i8(pos)
+            ln, pos = self._int(pos, self._nw)
             dims.append((name, ln))
         return dims, pos
 
     def _att_list(self, pos):
-        tag, pos = self._i4(pos)
-        n, pos = self._i8(pos)
+        tag, pos = self._int(pos, 4)
+        n, pos = self._int(pos, self._nw)
         atts = {}
         for _ in range(n):
             name, pos = self._name(pos)
-            nct, pos = self._i4(pos)
-            ne, pos = self._i8(pos)
+            nct, pos = self._int(pos, 4)
+            ne, pos = self._int(pos, self._nw)
             dt, sz = _NC_TYPES[nct]
             raw = self._buf[pos:pos + ne * sz]
             pos += ne * sz + ((-(ne * sz)) % 4)
             if nct == 2:
+                if self.version != 5:
+                    raw = raw.rstrip(b"\x00")
                 atts[name] = raw.decode("utf-8", "replace")
             else:
                 a = np.frombuffer(raw, dt)
-                atts[name] = a.item() if a.size == 1 else a
+                atts[name] = a.item() if a.size == 1 else a.copy()
         return atts, pos
 
     def _var_list(self, pos):
-        tag, pos = self._i4(pos)
-        n, pos = self._i8(pos)
+        tag, pos = self._int(pos, 4)
+        n, pos = self._int(pos, self._nw)
         out = {}
         for _ in range(n):
             name, pos = self._name(pos)
-            rank, pos = self._i8(pos)
+            rank, pos = self._int(pos, self._nw)
             dimids = []
             for _ in range(rank):
-                d, pos = self._i8(pos)          # CDF-5: dimid is int64
+                d, pos = self._int(pos, self._nw)
                 dimids.append(d)
             atts, pos = self._att_list(pos)
-            nct, pos = self._i4(pos)
-            vsize, pos = self._i8(pos)
-            begin, pos = self._i8(pos)
+            nct, pos = self._int(pos, 4)
+            vsize, pos = self._int(pos, self._nw)
+            begin, pos = self._int(pos, self._bw)
             record = bool(dimids) and self.dims[dimids[0]][1] == 0
+            if record:
+                # a CDF-1/2 vsize saturates at 2^32 - 1 for a variable over
+                # 4 GiB: take the slot from the shape
+                per = int(np.prod([self.dims[d][1] for d in dimids[1:]],
+                                  dtype=np.int64)) * _NC_TYPES[nct][1]
+                vsize = per + (-per) % 4
             out[name] = dict(dimids=dimids, atts=atts, nc_type=nct,
                              vsize=vsize, begin=begin, record=record)
         return out, pos
@@ -242,7 +199,11 @@ class _CDF5Reader:
 
     def dim_size(self, name: str) -> int:
         ln = self._dim_map()[name]
-        return self.numrecs if ln == 0 else ln
+        if ln:
+            return ln
+        # unlimited: the record count, when a variable uses the dimension
+        return self.numrecs if any(v["record"] for v in self.vars.values()) \
+            else 0
 
     def has_var(self, name: str) -> bool:
         return name in self.vars
@@ -479,10 +440,7 @@ def open_dataset(path: str):
         magic = f.read(8)
     if magic.startswith(_HDF5_MAGIC):
         return NetCDF4File(path, "r")
-    if magic[:4] == b"CDF\x05":
-        # 64-bit-data classic (large MPAS runs); scipy reads CDF-1/2 only
-        return _CDF5Reader(path)
-    if magic[:4] in _CDF_MAGICS:
-        return _ClassicReader(path)
+    if magic[:4] in _CDF_VERSIONS:
+        return _CDFReader(path)
     # HDF5 superblock may be at an offset in some files; try h5py anyway
     return NetCDF4File(path, "r")

@@ -1,16 +1,18 @@
-"""Classic-format (CDF-2) writers for synthetic MPAS inputs.
+"""Classic-format (CDF-1/CDF-2) writers for synthetic MPAS inputs.
 
 The JAX package's synthetic writers (``mesh/synthetic.py``) write
 NetCDF4/HDF5 through h5py. These write the same variables, dimensions and
-attributes as CDF-2 ("64-bit offset") files with ``scipy.io.netcdf_file``
-— plain numpy and scipy — which the port's reader (``io/nc4.open_dataset``)
-reads without HDF5. ``chip_smoke.py`` uses them on machines without h5py;
-the tests drive the port on their files.
+attributes as classic files ("64-bit offset" CDF-2 by default, CDF-1 with
+``version=1``) with ``scipy.io.netcdf_file`` — plain numpy and scipy —
+which the port's reader (``io/nc4.open_dataset``) reads without HDF5.
+``chip_smoke.py`` uses them on machines without h5py; the tests drive the
+port on their files.
 
-``Time`` is a fixed dimension of length 1, not the record dimension:
-scipy's reader fails on record data larger than 2 GiB ("buffer size must
-be a multiple of element size"), which a 655,362-cell history file with
-55 levels exceeds. Variables keep their leading ``Time`` axis.
+``Time`` is the record (unlimited) dimension, as in MPAS's own history and
+diag streams; ``record_time=False`` makes it a fixed dimension of length 1.
+The port's reader takes record data past 2 GiB (a 655,362-cell history
+file with 55 levels has more), which scipy's reader does not. Variables
+keep their leading ``Time`` axis either way.
 """
 
 from __future__ import annotations
@@ -20,18 +22,20 @@ import numpy as np
 _XTIME_STRLEN = 64
 
 
-def _netcdf(path):
+def _netcdf(path, version, record_time):
     from scipy.io import netcdf_file
 
-    return netcdf_file(path, "w", version=2)
+    f = netcdf_file(path, "w", version=version)
+    f.createDimension("Time", None if record_time else 1)
+    return f
 
 
-def write_grid_file_classic(mesh, path: str) -> None:
+def write_grid_file_classic(mesh, path: str, *, version: int = 2,
+                            record_time: bool = True) -> None:
     """Classic counterpart of ``mesh.synthetic.write_mpas_grid_file``:
     dims, latCell/lonCell (radians), latVertex/lonVertex, verticesOnCell
     and cellsOnVertex (1-based, 0-padded), zs, ter."""
-    with _netcdf(path) as f:
-        f.createDimension("Time", 1)
+    with _netcdf(path, version, record_time) as f:
         for name, n in (("nCells", mesh.ncells),
                         ("nVertices", mesh.nvertices),
                         ("nVertLevels", mesh.nz), ("nVertLevelsP1", mesh.nzp1),
@@ -62,16 +66,17 @@ def write_grid_file_classic(mesh, path: str) -> None:
 def write_data_file_classic(mesh, path: str, fields: dict,
                             attrs: dict | None = None,
                             xtime: str = "2024-03-25_09:00:00",
-                            dtype: str = "f4") -> None:
+                            dtype: str = "f4", *, version: int = 2,
+                            record_time: bool = True) -> None:
     """Classic counterpart of ``mesh.synthetic.write_mpas_data_file``.
 
     fields: name -> array of shape (ncells,), (ncells, nz), (ncells, nzp1),
     (ncells, nsoil) or (nvertices, nz), or a zero-argument callable
     returning it (evaluated one at a time); dimension names are inferred
-    from the shape. attrs: global attributes. Each variable gets the
-    attributes units="si" and long_name="<name> field"."""
-    with _netcdf(path) as f:
-        f.createDimension("Time", 1)
+    from the shape; dtype: their numpy type ("f4", "f8", "i2", "i4").
+    attrs: global attributes. Each variable gets the attributes units="si"
+    and long_name="<name> field"."""
+    with _netcdf(path, version, record_time) as f:
         for name, n in (("nCells", mesh.ncells),
                         ("nVertices", mesh.nvertices),
                         ("nVertLevels", mesh.nz), ("nVertLevelsP1", mesh.nzp1),
@@ -86,8 +91,7 @@ def write_data_file_classic(mesh, path: str, fields: dict,
         for name, arr in fields.items():
             if callable(arr):
                 arr = arr()
-            arr = np.asarray(arr, dtype=np.float64 if dtype == "f8"
-                             else np.float32)
+            arr = np.asarray(arr, dtype=dtype)
             loc = "nCells" if arr.shape[0] == mesh.ncells else "nVertices"
             dims = ("Time", loc) if arr.ndim == 1 else (
                 "Time", loc, lev_dim[arr.shape[1]])

@@ -11,9 +11,11 @@ source and one slab gathered from it:
 - v0: ``packed_apply`` (csrc/packed_apply.cu), the ELL-direct kernel of the
   main path, f32 sums;
 - v1: ``ell_split_apply_v1``, the one-hot operator built from the ELL arrays
-  in the kernel, split_bf16 terms summed as three products;
+  in the kernel for every 32-row step of every block, split_bf16 terms on
+  the tensor cores;
 - v2: ``ell_split_apply_v2`` at CC = 128 and 256 columns per chunk, the
-  operator built once per 32 target points and reused for every chunk;
+  operator built once per strip of target points and reused for every
+  chunk;
 - the write wall: ``write_wall`` at the same output shape, the store-only
   ceiling each variant is set against.
 
@@ -156,6 +158,7 @@ def run_variants(ell, device, *, cols=512, seed=0, cache_dir=None):
         V2_CC,
         ell_split_apply_v1,
         ell_split_apply_v2,
+        ell_split_plan,
     )
     from ..ops.write_wall import write_wall
 
@@ -213,7 +216,8 @@ def run_variants(ell, device, *, cols=512, seed=0, cache_dir=None):
                "ntx": rg.ntx, "n_tiles": rg.n_tiles, "W": rg.W,
                "K": int(loc.shape[1]), "cols": cols, "Cp": Cp,
                "device": str(device), "out_bytes": out_bytes,
-               "fma_per_split_variant": rg.n_tiles * 1024 * rg.W * Cp * 3}
+               "bf16_flop_per_split_variant": ell_split_plan(
+                   rg.n_tiles, rg.W, Cp, int(loc.shape[1]), "v1").flop}
     variants = []
     timed = device.type == "cuda"
     wall_ms = _time_ms(wall[1]) if timed else None

@@ -47,22 +47,30 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-def _problem(seed, nty=2, ntx=3, W=40, Cp=256, K=3, out_of_range=False):
+def _problem(seed, nty=2, ntx=3, W=40, Cp=256, K=3, out_of_range=False,
+             same_row=False, spread=False):
     """Bilinear-like ELL arrays over a (n_tiles, W, Cp) slab: weights in
     [0, 1), duplicate locs within a point (their weights must be summed
-    before the split), w = 0 pads at loc 0 as the pack leaves them, and
-    optionally entries naming rows >= W (which add nothing)."""
+    before the split), w = 0 pads at loc 0 as the pack leaves them,
+    optionally entries naming rows >= W or negative rows (which add
+    nothing), points whose K locs all name one row, and slab values spread
+    over 2^-20..2^20."""
     rng = np.random.default_rng(seed)
     n_tiles = nty * ntx
     loc = rng.integers(0, W, (n_tiles, K, TILE)).astype(np.int32)
     w = rng.random((n_tiles, K, TILE)).astype(np.float32)
     if K > 1:
         loc[:, -1, : TILE // 3] = loc[:, 0, : TILE // 3]      # duplicates
+    if same_row:
+        loc[:, :, ::5] = loc[:, :1, ::5]
     pad = rng.random((n_tiles, K, TILE)) < 0.2
     loc[pad], w[pad] = 0, 0.0
     if out_of_range:
         loc[:, 0, ::7] = W + 3
+        loc[:, K - 1, 3::11] = -1 - np.arange(3, TILE, 11) % 40
     slab = rng.standard_normal((n_tiles, W, Cp)).astype(np.float32)
+    if spread:
+        slab *= (2.0 ** rng.uniform(-20, 20, slab.shape)).astype(np.float32)
     return loc, w, slab
 
 
@@ -234,13 +242,20 @@ def test_tool_needs_a_card(monkeypatch, capsys):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("W,Cp,K", [(40, 384, 3), (16, 512, 3), (70, 256, 4)])
-def test_cuda_kernels_match_plain(cuda_device, W, Cp, K):
+@pytest.mark.parametrize("spread", [False, True])
+@pytest.mark.parametrize("Cp", [128, 512, 1024])
+@pytest.mark.parametrize("K", [1, 3, 16])
+@pytest.mark.parametrize("W", [1, 15, 40, 80, vk.V2_MAX_W])
+def test_cuda_kernels_match_plain(cuda_device, W, K, Cp, spread):
     """v1, and v2 at each CC that divides Cp, against their plain versions
     (1e-6 of max|plain|), and v1 against v2 bit for bit. W not a multiple
-    of v1's 32-row step, duplicates, pads and rows >= W."""
+    of v1's 32-row step nor of the wgmma's 16 (the descriptors' core-matrix
+    strides only show above W = 8), duplicates, points whose K locs all
+    name one row, pads, rows >= W and negative rows; with spread slab
+    magnitudes, the small terms' accumulator matters."""
     nty, ntx = 3, 5
-    args = _torch(*_problem(7, nty, ntx, W, Cp, K, out_of_range=True),
+    args = _torch(*_problem(7, nty, ntx, W, Cp, K, out_of_range=True,
+                            same_row=True, spread=spread),
                   device=cuda_device)
     launches = dict(vk.LAUNCHES)
     v1 = vk.ell_split_apply_v1(*args, nty=nty, ntx=ntx)
@@ -256,6 +271,33 @@ def test_cuda_kernels_match_plain(cuda_device, W, Cp, K):
         torch.cuda.synchronize()
         assert (v2 - ref2).abs().max() <= TOL * ref2.abs().max()
         assert torch.equal(v1, v2)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_take_unaligned_and_strided_views(cuda_device):
+    """The kernels read loc/w and the slab with 16-byte loads: views that
+    start off a 16-byte boundary or are not contiguous give the same
+    output as fresh tensors."""
+    nty, ntx = 1, 2
+    loc, w, slab = _torch(*_problem(9, nty, ntx, W=24, Cp=256),
+                          device=cuda_device)
+    ref = vk.ell_split_apply_v1(loc, w, slab, nty=nty, ntx=ntx)
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        flat[1:] = t.reshape(-1)
+        return flat[1:].view(t.shape)
+
+    loc_s, w_s, slab_s = (shifted(t) for t in (loc, w, slab))
+    assert slab_s.data_ptr() % 16 != 0
+    slab_t = slab.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not slab_t.is_contiguous()
+    for args in ((loc_s, w_s, slab_s), (loc, w, slab_t)):
+        assert torch.equal(vk.ell_split_apply_v1(*args, nty=nty, ntx=ntx),
+                           ref)
+        for CC in vk.V2_CC:
+            assert torch.equal(vk.ell_split_apply_v2(*args, nty=nty,
+                                                     ntx=ntx, CC=CC), ref)
 
 
 @pytest.mark.cuda
