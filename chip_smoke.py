@@ -18,7 +18,8 @@ one JSON line:
   -sass); HGMMA must not be 0 in either;
 - inputs: a synthetic global MPAS mesh of 655,362 cells (the size of
   MPAS's x1.655362 30-km mesh), nz=55, nsoil=4, with seeded smooth fields
-  for every variable of the shipped parm/ varlists, written as NetCDF4
+  for every variable of the shipped parm/ varlists and the vertex field
+  ``vorticity``, written as NetCDF4
   (or, when h5py is missing, as CDF-2 through scipy with ``Time`` the
   record dimension, as MPAS writes it: the history file's record data
   passes 2 GiB, which the port's own classic parser reads);
@@ -38,11 +39,29 @@ one JSON line:
   variable's largest sampled magnitude; the gather route's result must
   equal the default route's bit for bit, the one-hot route's within 1e-6
   of each variable's largest magnitude;
+- main_path_streamed: the production configuration of the JAX package's
+  tools/bench_production.py: the CLI with stream_output = .true. on a copy
+  of parm/ whose histlist_3d adds the vertex field ``vorticity VORT``
+  (seeded in the same history file), MPASSIT_DEVICE_BUDGET_GB=4 on the
+  default route, so the packed apply runs in column groups. A
+  StripRecorder stands in for the NetCDF4 StreamingWriter (which needs
+  h5py) and keeps no copy of the output: every put must be bit for bit
+  the same levels of the default route's result (rotated U10/V10 and U/V
+  included), VORT within TOL_REL of a float64 evaluation of the vertex
+  weights at sampled points, every var and level must arrive once;
+  launches against those owed, with the group width read from the
+  regridder's own call; no plain call; peak device memory below the
+  default route's and within the budget. Its ``write_to_file`` is the
+  recorder's time, not a file write;
 - kernel_vs_plain: each kernel against its plain PyTorch version on the
   card, at the main path's shapes: the packed bilinear+nearest+conserve
   pack of this mesh and grid at Cp=1024 with the (0, 55, 55) rotate window
   (with and without checksum) and the EDGE1 restagger pack (W ~ 1096,
-  Cp=128); the one-hot kernels for each precision, with the number of
+  Cp=128); packed_apply and onehot_apply_packed (split6_bf16) on the
+  first group (rotation) and the last group (the methods' tails and the
+  zero tail) of main_path_streamed's grouped pack, each also bit for bit
+  (torch.equal on the device) the same columns of its own full-width
+  output; the one-hot kernels for each precision, with the number of
   bf16 product terms and the achieved tensor-core TFLOP/s at the padded K
   (ops/onehot_kernel.launch_plan); the gather kernel also
   bit for bit against packed_apply; the ELL-built split_bf16 variants v1
@@ -72,9 +91,9 @@ one JSON line:
   of max|v0|).
 
 The counters of every kernel are zeroed just before each phase that drives
-a path (the three main-path routes, write_wall, kernel_variants) and read
-just after; the kernels line takes each kernel's launches from the phase
-that runs it.
+a path (the three main-path routes, main_path_streamed, write_wall,
+kernel_variants) and read just after; the kernels line takes each
+kernel's launches from the phase that runs it.
 
 Then the kernels line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed phase exits non-zero.
@@ -96,6 +115,9 @@ NCELLS = 655_362          # MPAS x1.655362 (30-km quasi-uniform) cell count
 NZ, NSOIL = 55, 4
 TOL_REL = 1e-6            # f32 apply vs f64 oracle (register R10 class)
 TOL_KERNEL = 1e-6         # kernel vs plain, relative to max|plain|
+#: main_path_streamed's MPASSIT_DEVICE_BUDGET_GB: below one full-width pass
+#: of the CONUS pack (11.1 GB), so its packed apply runs in column groups
+BUDGET_GB = 4
 #: the H100 SXM's published rates (NVIDIA data sheet; at 700 W): device
 #: memory bytes/s, dense bf16 tensor-core and f32 CUDA-core FLOP/s
 HBM_BYTES_S = 3.35e12
@@ -171,9 +193,43 @@ def _fields(routing, mesh, rng, np):
     return diag, hist
 
 
+def _vorticity_parm(parm, work):
+    """A copy of ``parm``'s varlists whose histlist_3d ends with the
+    vertex-located ``vorticity VORT``, as tools/bench_production.py builds
+    the production load; returns its directory."""
+    vd = os.path.join(work, "parm_vorticity")
+    os.makedirs(vd, exist_ok=True)
+    for name in ("diaglist", "histlist_2d", "histlist_3d", "histlist_soil"):
+        with open(os.path.join(parm, name)) as f:
+            body = f.read()
+        if name == "histlist_3d":
+            body = body.rstrip("\n") + "\nvorticity VORT\n"
+        with open(os.path.join(vd, name), "w") as f:
+            f.write(body)
+    return vd
+
+
+def _namelist(parm, repl, extra):
+    """The shipped namelist with the ``repl`` keys replaced and the
+    ``extra`` lines added before its end."""
+    lines = []
+    with open(os.path.join(parm, "namelist.input")) as f:
+        for line in f:
+            key = line.split("=")[0].strip().lower()
+            if key in repl:
+                line = f' {key} = "{repl[key]}"\n'
+            elif line.strip() == "/":
+                line = "".join(f" {e}\n" for e in extra) + "/\n"
+            lines.append(line)
+    return "".join(lines)
+
+
 def prepare_inputs(work, parm, ncells, seed, classic):
-    """Mesh, grid/diag/hist files and the namelist under ``work``; returns
-    the namelist path and what was written."""
+    """Mesh, grid/diag/hist files and two namelists under ``work``: the
+    shipped namelist on the shipped varlists, and the streamed one
+    (stream_output = .true.) on a copy of them with the vertex field
+    ``vorticity`` (whose seeded field the history file holds for both).
+    Returns the two namelist paths and what was written."""
     import numpy as np
 
     from mpassit_tpu_torch.fields.registry import build_routing
@@ -194,7 +250,8 @@ def prepare_inputs(work, parm, ncells, seed, classic):
     mesh = synthetic_voronoi_mesh(ncells=ncells, nz=NZ, nsoil=NSOIL,
                                   seed=seed + 1)
     t_mesh = time.perf_counter() - t0
-    routing = build_routing(parm, True, True, True)
+    vparm = _vorticity_parm(parm, work)
+    routing = build_routing(vparm, True, True, True)
     diag, hist = _fields(routing, mesh, np.random.default_rng(seed), np)
     attrs = {"config_start_time": "2024-03-25_09:00:00", "config_dt": 20.0,
              "config_lsm_scheme": "noah",
@@ -209,34 +266,42 @@ def prepare_inputs(work, parm, ncells, seed, classic):
     write_data(mesh, paths["hist"], hist, attrs=attrs,
                xtime="2024-03-25_10:00:00", dtype="f4")
     # the shipped namelist, its four file paths pointed at this run's files
-    nml_lines = []
     repl = {"grid_file_input_grid": paths["grid"],
             "hist_file_input_grid": paths["hist"],
             "diag_file_input_grid": paths["diag"],
             "output_file": os.path.join(work, "mpassit_out.nc")}
-    with open(os.path.join(parm, "namelist.input")) as f:
-        for line in f:
-            key = line.split("=")[0].strip().lower()
-            if key in repl:
-                line = f' {key} = "{repl[key]}"\n'
-            elif line.strip() == "/":
-                line = (f' varlist_dir = "{parm}"\n'
-                        f' weights_cache_dir = "{os.path.join(work, "weights")}"'
-                        "\n/\n")
-            nml_lines.append(line)
-    nml = os.path.join(work, "namelist.input")
-    with open(nml, "w") as f:
-        f.writelines(nml_lines)
+    cache = f'weights_cache_dir = "{os.path.join(work, "weights")}"'
+    texts = {"namelist.input": _namelist(
+                 parm, repl, [f'varlist_dir = "{parm}"', cache]),
+             "namelist_streamed.input": _namelist(
+                 parm, repl, [f'varlist_dir = "{vparm}"', cache,
+                              "stream_output = .true."])}
+    nmls = []
+    for name, text in texts.items():
+        nmls.append(os.path.join(work, name))
+        with open(nmls[-1], "w") as f:
+            f.write(text)
     in_bytes = sum(os.path.getsize(p) for p in paths.values())
-    return nml, {"ncells": mesh.ncells, "nvertices": mesh.nvertices,
-                 "nz": NZ, "nsoil": NSOIL, "seed": seed,
-                 "format": ("CDF-2 (scipy), record Time" if classic
-                            else "NetCDF4 (h5py)"),
-                 "input_bytes": in_bytes, "t_mesh_s": t_mesh,
-                 "namelist": "".join(nml_lines)}
+    return nmls, {"ncells": mesh.ncells, "nvertices": mesh.nvertices,
+                  "nz": NZ, "nsoil": NSOIL, "seed": seed,
+                  "format": ("CDF-2 (scipy), record Time" if classic
+                             else "NetCDF4 (h5py)"),
+                  "input_bytes": in_bytes, "t_mesh_s": t_mesh,
+                  "namelist": texts["namelist.input"]}
 
 
 # ---------------------------------------------------------------- check ----
+
+def ell_f64(ell, pts, src):
+    """sum_k w * src[idx] at target points ``pts``, in float64:
+    (len(pts), columns of ``src``)."""
+    import numpy as np
+
+    s = np.asarray(src, np.float64)
+    s = s[:, None] if s.ndim == 1 else s
+    return np.einsum("pk,pkc->pc", np.asarray(ell.w, np.float64)[pts],
+                     s[np.asarray(ell.idx)[pts]])
+
 
 def check_outputs(art, n_sample, seed):
     """Sampled target points of every RegridResult variable against a
@@ -257,12 +322,7 @@ def check_outputs(art, n_sample, seed):
                                   replace=False))
 
     def ell64(key, pts, src):
-        e = W[key]
-        s = np.asarray(src, np.float64)
-        s = s[:, None] if s.ndim == 1 else s
-        idx = np.asarray(e.idx)[pts]
-        return np.einsum("pk,pkc->pc", np.asarray(e.w, np.float64)[pts],
-                         s[idx])
+        return ell_f64(W[key], pts, src)
 
     def rot64(u, v, pts_or_all):
         ca = np.asarray(grid.cosa, np.float64).reshape(-1)[pts_or_all]
@@ -410,12 +470,16 @@ def _time_ms(torch, fn, n):
     return ts[len(ts) // 2]
 
 
-def kernel_vs_plain(art, device, seed, launches_per_run):
+def kernel_vs_plain(art, device, seed, launches_per_run, pack_geom,
+                    streamed_launches):
     """Every kernel against its plain PyTorch version on the card at the
     main path's shapes. Returns (per-case results, {kernel: summary});
     the summary's ms/plain_ms, bound and library_ms are those of the
     kernel's first timed case. ``launches_per_run``: {kernel: launches on
-    its route's main-path run}."""
+    its route's main-path run}; ``pack_geom``: the column counts, rotation
+    windows and group width of the streamed run's grouped pack, whose
+    first and last groups are cases of their own (``launches_per_run``
+    from ``streamed_launches``)."""
     import numpy as np
     import torch
 
@@ -427,6 +491,7 @@ def kernel_vs_plain(art, device, seed, launches_per_run):
         CH,
         PackedSlabRegridder,
         SlabMatmulRegridder,
+        group_ranges,
     )
     from mpassit_tpu_torch.run.pipeline import build_weights
 
@@ -437,10 +502,12 @@ def kernel_vs_plain(art, device, seed, launches_per_run):
     cases = []
 
     def run_case(kernel, name, call, plain, checksum, extra=None,
-                 flop=None, work=None, library=None):
+                 flop=None, work=None, library=None, launches=None):
         """``work``: (bytes, flop, peak) of the function for its bound;
         ``library``: a thunk that prepares and returns the yardstick call
-        (timed, not checksum, cases only)."""
+        (timed, not checksum, cases only); ``launches``: the kernel's
+        launches on the run whose shapes the case has, when that is not
+        its route's main-path run."""
         got = call()
         torch.cuda.synchronize()
         ref = plain()
@@ -463,7 +530,8 @@ def kernel_vs_plain(art, device, seed, launches_per_run):
         nbytes, ops, peak = work
         out["bytes"], out["flop"] = nbytes, ops
         out["bound_ms"], out["bound_by"] = bound_ms(nbytes, ops, peak)
-        out["launches_per_run"] = launches_per_run.get(kernel, 0)
+        out["launches_per_run"] = (launches_per_run.get(kernel, 0)
+                                   if launches is None else launches)
         # untimed (checksum) cases: no time, so no share of the bound
         out["of_bound"] = out["library_ms"] = None
         if not checksum:
@@ -484,6 +552,7 @@ def kernel_vs_plain(art, device, seed, launches_per_run):
         ok_ = (out["finite"] and out["max_rel_err"] <= TOL_KERNEL
                and out.get("checksum_max_rel_err", 0.0) <= 1e-5
                and out.get("equal_to_packed_apply", True)
+               and out.get("equal_to_full_width", True)
                and out.get("vs_v2_ok", True))
         out["ok"] = ok_
         cases.append(out)
@@ -578,6 +647,77 @@ def kernel_vs_plain(art, device, seed, launches_per_run):
                          torch, locs8, ws8, ranges, rg.W8, src_pad.shape[0],
                          src_pad, ch=ch))
 
+    def group_cases(geom):
+        """packed_apply and onehot_apply_packed (split6_bf16) on the first
+        group (with the rotation) and the last group (the methods' tails
+        and the zero tail) of the streamed run's grouped pack: each against
+        its plain version, and bit for bit the same columns of the kernel's
+        own full-width output on the same slab."""
+        keys = ("bilinear", "nearest", "conserve")
+        if len(geom["cols"]) != len(keys):
+            raise AssertionError(f"unexpected pack {geom}")
+        rot_spec = ((geom["rotate"], grid.cosa, grid.sina)
+                    if geom["rotate"] else None)
+        gp = PackedSlabRegridder(list(zip((W[k] for k in keys),
+                                          geom["cols"])), device,
+                                 rotate_spec=rot_spec,
+                                 cache_dir=cfg.weights_cache_dir)
+        gw, Cp, prec = geom["gw"], gp.Cp, "split6_bf16"
+        slab, _ = operands(gp, Cp)
+        locs, ws = gp._ell_dev()
+        As = gp.As
+        nt = dict(nty=gp.nty, ntx=gp.ntx)
+        rot = dict(rotate=gp.rotate, cosa=gp._cosa_t, sina=gp._sina_t)
+        full = {"packed_apply": pk.packed_apply(
+                    slab, locs, ws, ranges=gp.ranges, **nt, **rot),
+                "onehot_apply_packed": ok.onehot_apply_packed(
+                    As, slab, ranges=gp.ranges, precision=prec, **nt,
+                    **rot)}
+        for g in (0, Cp - gw):
+            sub, ms = group_ranges(gp.ranges, g, gw)
+            kw = dict(ranges=sub, **nt, **(rot if g == 0 else {}))
+            sg = slab[:, :, g:g + gw].contiguous()
+            lg, wg, Ag = ([a[m] for m in ms] for a in (locs, ws, As))
+            tag = (f"group{g // gw}_of{-(-Cp // gw)}_gw{gw}"
+                   + ("_rot" if g == 0 else "_tail"))
+            out_numel = gp.nty * 32 * gp.ntx * 32 * gw
+            sg2 = sg.view(-1, gw)
+
+            def same(kernel, g=g):
+                return lambda got: {"equal_to_full_width": bool(
+                    torch.equal(got, full[kernel][:, :, g:g + gw])),
+                    "columns": [g, g + gw], "ranges": list(sub)}
+            run_case("packed_apply", tag,
+                     lambda: pk.packed_apply(sg, lg, wg, **kw),
+                     lambda: pk.packed_apply_plain(sg, lg, wg, **kw), False,
+                     extra=same("packed_apply"),
+                     work=(*ell_work(torch, lg, sub, gp.W, out_numel,
+                                     rotate=g == 0), PEAK_F32),
+                     library=lambda: csr_yardstick(torch, lg, wg, sub, gp.W,
+                                                   sg2.shape[0], sg2),
+                     launches=streamed_launches["packed_apply"])
+            plan = ok.launch_plan(gp.n_tiles, gp.W, gw, sub,
+                                  kw.get("rotate", ()), prec)
+
+            def bmm(Ag=Ag, sub=sub, sg=sg):
+                mats = [(A.transpose(1, 2), sg[:, :, c0:c1].contiguous())
+                        for A, (c0, c1) in zip(Ag, sub)]
+                return lambda: [torch.bmm(A, S) for A, S in mats]
+            run_case("onehot_apply_packed", f"{tag}_{prec}",
+                     lambda: ok.onehot_apply_packed(Ag, sg, precision=prec,
+                                                    **kw),
+                     lambda: ok.onehot_apply_packed_plain(
+                         Ag, sg, precision=prec, **kw), False,
+                     extra=same("onehot_apply_packed"), flop=plan.flop,
+                     work=((out_numel + sg.numel()
+                            + sum(A.numel() for A in Ag)) * 4,
+                           plan.terms * 2 * gp.n_tiles * 1024 * gp.W
+                           * sub[-1][1], PEAK_BF16),
+                     library=bmm,
+                     launches=streamed_launches["onehot_apply_packed"])
+            del sg, sg2, lg, wg, Ag
+        del gp, slab, locs, ws, As, full
+
     # the packed bilinear+nearest+conserve operator at Cp = 1024 with the
     # mass-wind window (0, nz, nz) first, like the main path's pack
     cols = {"bilinear": 1024 - 2 * 16, "nearest": 16, "conserve": 16}
@@ -589,6 +729,8 @@ def kernel_vs_plain(art, device, seed, launches_per_run):
                               cosa=pack._cosa_t, sina=pack._sina_t),
           "packed_conus_cp1024_rot")
     del pack
+    torch.cuda.empty_cache()
+    group_cases(pack_geom)
     torch.cuda.empty_cache()
     edge = SlabMatmulRegridder(W["edge1"], device,
                                cache_dir=cfg.weights_cache_dir)
@@ -842,13 +984,18 @@ def _zero_counters():
 
 
 def expected_launches(route, calls, fetch):
-    """Kernel launches the route owes for the recorded applies: one per
-    packed apply, one per FETCH-column group of a slab apply, except on
-    the gather route, where a slab apply of at most FETCH columns is one
-    gather launch (and a wider one takes the default route)."""
+    """Kernel launches the route owes for the recorded applies
+    ([kind, Cp, gw]): one per packed apply, or one per column group of
+    the width gw the regridder's grouped apply was called with; one per
+    FETCH-column group of a slab apply; except on the gather route, where
+    a slab apply of at most FETCH columns is one gather launch (and a
+    wider one takes the default route)."""
     e = dict.fromkeys(KERNELS, 0)
-    for kind, Cp in calls:
-        n = 1 if kind == "packed" else -(-Cp // fetch)
+    for kind, Cp, gw in calls:
+        if kind == "packed":
+            n = -(-Cp // gw) if gw else 1
+        else:
+            n = -(-Cp // fetch)
         if route == "onehot":
             e["onehot_apply_packed" if kind == "packed"
               else "onehot_apply"] += n
@@ -893,6 +1040,170 @@ def compare_results(got, ref):
         worst_rel = max(worst_rel, d / max(float(np.abs(y).max()), 1e-30))
     return {"n_arrays": len(b), "bit_identical": identical,
             "max_abs_diff": worst_abs, "max_rel_diff": worst_rel}
+
+
+class StripRecorder:
+    """Stands in for ``io/wrf_writer.StreamingWriter`` (same constructor,
+    ``open``/``put``/``finish``/``stats``) where no NetCDF4 file can be
+    written. It writes nothing and keeps no second copy of the output:
+    each put is checked as it arrives, bit for bit against ``ref`` (var
+    -> the default route's RegridResult array) where the var has one, else
+    sampled at the flat target points ``pts`` into ``sampled``; each level
+    of each var of the stream plan is counted, to arrive exactly once."""
+
+    def __init__(self, ref, pts, path, cfg, grid, data, plan, nz, nzp1,
+                 nsoil, zs):
+        import numpy as np
+
+        self.ref, self.pts = ref, pts
+        nlev = {"diag2d": 1, "cons2d": 1, "patch2d": 1, "nstd2d": 1,
+                "diag3d": nz, "soil": nsoil, "nz3d": nz, "nzp13d": nzp1,
+                "vert3d": nz}
+        self.count = {"HGT": np.zeros(1, int)}
+        for cat, k in nlev.items():
+            for name, *_ in plan.get(cat, []):
+                self.count[name] = np.zeros(k, int)
+        for var, flag in (("U", "do_u"), ("V", "do_v")):
+            if plan.get(flag):
+                self.count[var] = np.zeros(nz, int)
+        self.sampled, self.checked = {}, set()
+        self.mismatched, self.unexpected = [], []
+        self.stats = {"t_write_s": 0.0, "blocks": 0}
+
+    def open(self):
+        return self
+
+    def put(self, var, lev0, block):
+        import numpy as np
+
+        t0 = time.perf_counter()
+        block = np.asarray(block)
+        k = 1 if block.ndim == 2 else block.shape[2]
+        self.stats["blocks"] += 1
+        if var not in self.count:
+            self.unexpected.append(var)
+            return
+        self.count[var][lev0:lev0 + k] += 1
+        ref = self.ref.get(var)
+        if ref is not None:
+            r = ref if ref.ndim == 2 else ref[:, :, lev0:lev0 + k]
+            if not np.array_equal(block, r):
+                self.mismatched.append([var, lev0, k])
+            self.checked.add(var)
+        else:
+            s = self.sampled.setdefault(var, np.full(
+                (len(self.pts), len(self.count[var])), np.nan))
+            s[:, lev0:lev0 + k] = block.reshape(-1, k)[self.pts]
+        self.stats["t_write_s"] += time.perf_counter() - t0
+
+    def finish(self):
+        pass
+
+    def missing(self):
+        """var -> the levels that did not arrive exactly once."""
+        return {v: [int(i) for i in (c != 1).nonzero()[0]]
+                for v, c in self.count.items() if (c != 1).any()}
+
+
+def streamed_phase(pipeline, nml, default_art, device, seed, reduced,
+                   default_peak_gb, arts, calls, split, pack_geom):
+    """main_path_streamed: the CLI on ``nml`` (stream_output = .true., the
+    vorticity varlists) with MPASSIT_DEVICE_BUDGET_GB=4 on the default
+    route, so the packed apply runs in column groups, a StripRecorder
+    standing in for the writer. Fails unless every streamed variable is
+    bit for bit the default route's, the vertex field is within TOL_REL of
+    a float64 evaluation at sampled points, every var and level arrived
+    once, the launches are those owed (the groups read from the
+    regridder's own call), no plain version ran, and the peak device
+    memory is below the default route's and within BUDGET_GB. Returns the
+    phase's launches."""
+    import numpy as np
+    import torch
+
+    from mpassit_tpu_torch.ops import matmul_apply
+    from mpassit_tpu_torch.ops import packed_kernel as pk
+    from mpassit_tpu_torch.run.pipeline import build_weights
+
+    res, grid = default_art.result, default_art.grid
+    ref = {k.split(".", 1)[1]: v for k, v in _result_arrays(res).items()
+           if "." in k}
+    ref.update(HGT=res.hgt, U=res.u, V=res.v)
+    pts = np.sort(np.random.default_rng(seed).choice(
+        grid.n_points, size=min(4000, grid.n_points), replace=False))
+    made = []
+
+    def recorder(*a):
+        made.append(StripRecorder(ref, pts, *a))
+        return made[-1]
+
+    writer_cls = pipeline.StreamingWriter
+    pipeline.StreamingWriter = recorder
+    os.environ["MPASSIT_DEVICE_BUDGET_GB"] = str(BUDGET_GB)
+    _zero_counters()
+    t0 = time.perf_counter()
+    try:
+        rc = pipeline.main([nml])
+    finally:
+        pipeline.StreamingWriter = writer_cls
+        del os.environ["MPASSIT_DEVICE_BUDGET_GB"]
+    t_main = time.perf_counter() - t0
+    launches, plain_calls = _counters()
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    if rc != 0 or not arts or len(made) != 1:
+        raise SystemExit(f"main_path_streamed failed: rc={rc}")
+    art, rec = arts[0], made[0]
+    art.regridders.clear()
+    expected = expected_launches("ell", calls, matmul_apply.FETCH)
+    # the vertex-located fields against a float64 evaluation
+    W = build_weights(art.cfg, art.mesh, art.grid, art.routing)
+    vert = {}
+    for s in art.routing.vert_3d:
+        want = ell_f64(W["vertex"], pts, art.data.fields[s.in_name])
+        got = rec.sampled.get(s.out_name)
+        vert[s.out_name] = (float(np.abs(got - want).max()
+                                  / max(float(np.abs(want).max()), 1e-30))
+                            if got is not None else None)
+    packed = [c for c in calls if c[0] == "packed"]
+    line = {
+        "phase": "main_path_streamed", "rc": rc, "t_s": t_main,
+        "config": {"namelist": os.path.basename(nml),
+                   "stream_output": True,
+                   "MPASSIT_DEVICE_BUDGET_GB": BUDGET_GB,
+                   "route": "default",
+                   "varlists": "parm/ + histlist_3d 'vorticity VORT'"},
+        "stages_s": art.timings.stages,
+        "write_to_file_is": "StripRecorder's open, puts (each checked "
+                            "against the default route) and finish; no "
+                            "file is written",
+        "interp_data_split_s": dict(split),
+        "group_width": pack_geom.get("gw", 0),
+        "n_groups": sum(-(-c[1] // c[2]) if c[2] else 1 for c in packed),
+        "pack_cols": pack_geom.get("cols"), "puts": rec.stats["blocks"],
+        # the groups' launch plans beside the earlier phases': an
+        # eviction would show as currsize at maxsize
+        "ell_plan_cache": pk._plan_on.cache_info()._asdict(),
+        "launches": launches, "expected_launches": expected,
+        "applies": calls, "plain_calls": plain_calls,
+        "peak_device_gb": peak, "peak_within_budget": peak <= BUDGET_GB,
+        "default_route_peak_device_gb": default_peak_gb,
+        "vars_bit_identical_to_default": len(rec.checked),
+        "vars_streamed": len(rec.count), "mismatched": rec.mismatched[:20],
+        "missing_or_repeated": rec.missing(), "unexpected": rec.unexpected,
+        "vertex_max_rel_err": vert, "tol_rel": TOL_REL,
+        "reduced": reduced + ["ncells 655362 < 2600000 "
+                              "(tools/bench_production.py)"]}
+    line["ok"] = ok_ = bool(
+        launches == expected and launches["packed_apply"] > 0
+        and pack_geom.get("gw") and not any(plain_calls.values())
+        and not rec.mismatched and not line["missing_or_repeated"]
+        and not rec.unexpected and vert
+        and all(e is not None and e <= TOL_REL for e in vert.values())
+        and len(rec.checked) + len(vert) == len(rec.count)
+        and peak < default_peak_gb and peak <= BUDGET_GB)
+    emit(line)
+    if not ok_:
+        raise SystemExit("main_path_streamed failed its checks")
+    return launches
 
 
 def main(argv=None) -> int:
@@ -963,8 +1274,9 @@ def main(argv=None) -> int:
     # --- inputs ----------------------------------------------------------
     shutil.rmtree(WORK, ignore_errors=True)
     t0 = time.perf_counter()
-    nml, info = prepare_inputs(WORK, os.path.join(HERE, "parm"),
-                               args.ncells, args.seed, classic=not has_h5py)
+    (nml, nml_streamed), info = prepare_inputs(
+        WORK, os.path.join(HERE, "parm"), args.ncells, args.seed,
+        classic=not has_h5py)
     reduced = ([f"ncells {args.ncells} < {NCELLS}"]
                if args.ncells < NCELLS else [])
     emit({"phase": "inputs", "t_s": time.perf_counter() - t0,
@@ -980,7 +1292,7 @@ def main(argv=None) -> int:
     from mpassit_tpu_torch.ops import matmul_apply
     from mpassit_tpu_torch.run import pipeline
 
-    arts, calls = [], []
+    arts, calls, pack_geom = [], [], {}
     run_pipeline = pipeline.run_pipeline
 
     def observed_run(cfg, device, dtype=None):
@@ -989,24 +1301,39 @@ def main(argv=None) -> int:
         return art
 
     def record(cls, kind):
+        """Each apply as [kind, Cp, group width (0: one pass)]."""
         orig = cls.apply_np
 
         def wrapped(self, src, *a, **kw):
             blocks = src if isinstance(src, (list, tuple)) else [src]
             C = sum(1 if np.ndim(b) == 1 else np.shape(b)[1]
                     for b in blocks)
-            calls.append((kind, C + (-C) % matmul_apply.LANE))
+            calls.append([kind, C + (-C) % matmul_apply.LANE, 0])
             return orig(self, src, *a, **kw)
         cls.apply_np = wrapped
+
+    width = matmul_apply.PackedSlabRegridder._grouped_width
+
+    def width_wrapped(self):
+        """The group width the regridder chose for the apply being
+        recorded, and its pack's geometry."""
+        gw = width(self)
+        if gw:
+            calls[-1][2] = gw
+            pack_geom.update(cols=list(self.col_counts), rotate=self.rotate,
+                             gw=gw)
+        return gw
 
     pipeline.run_pipeline = observed_run
     record(matmul_apply.PackedSlabRegridder, "packed")
     record(matmul_apply.SlabMatmulRegridder, "slab")
+    matmul_apply.PackedSlabRegridder._grouped_width = width_wrapped
     # where interp_data goes: host->device source upload, one-hot operator
     # build, gather-layout build, kernel launches, device->host strip
     # fetch, each bracketed by synchronizes
     split = {}
-    split_keys = {"_src_to_device": "upload_s", "_build_A_T": "build_A_s",
+    split_keys = {"_src_window_to_device": "upload_s",
+                  "_build_A_T": "build_A_s",
                   "_chunk_slab_cached": "chunk_layout_s",
                   "packed_apply": "kernel_s", "onehot_apply": "kernel_s",
                   "onehot_apply_packed": "kernel_s",
@@ -1033,7 +1360,7 @@ def main(argv=None) -> int:
         print(json.dumps({"output_write":
                           "captured in memory: h5py not installed"}))
     os.environ["MPASSIT_PLATFORM"] = "cuda"
-    route_launches, default_art = {}, None
+    route_launches, default_art, peaks = {}, None, {}
     for phase, (route, switches) in ROUTES.items():
         for k in ("MPASSIT_ELL_KERNEL", "MPASSIT_GATHER_KERNEL"):
             os.environ.pop(k, None)
@@ -1051,12 +1378,12 @@ def main(argv=None) -> int:
         launches, plain_calls = _counters()
         art = arts[0] if arts else None
         expected = expected_launches(route, calls, matmul_apply.FETCH)
+        peaks[route] = torch.cuda.max_memory_allocated(device) / 1e9
         emit({"phase": phase, "switches": switches, "rc": rc, "t_s": t_main,
               "stages_s": art.timings.stages if art else {},
               "interp_data_split_s": dict(split), "launches": launches,
               "expected_launches": expected, "applies": list(calls),
-              "plain_calls": plain_calls,
-              "peak_device_gb": torch.cuda.max_memory_allocated(device) / 1e9,
+              "plain_calls": plain_calls, "peak_device_gb": peaks[route],
               "out_shape": [art.grid.ny, art.grid.nx] if art else None,
               "reduced": reduced})
         if rc != 0 or art is None:
@@ -1113,11 +1440,27 @@ def main(argv=None) -> int:
     for k in ("MPASSIT_ELL_KERNEL", "MPASSIT_GATHER_KERNEL"):
         os.environ.pop(k, None)
 
+    # --- the production configuration: streamed, grouped ------------------
+    arts.clear()
+    calls.clear()
+    split.clear()
+    pack_geom.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    route_launches["streamed"] = streamed_phase(
+        pipeline, nml_streamed, default_art, device, args.seed, reduced,
+        peaks["ell"], arts, calls, split, pack_geom)
+    arts.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # --- kernel vs plain, the write wall, the kernel variants --------------
     cases, summary = kernel_vs_plain(
         default_art, device, args.seed,
         {k: route_launches[PHASE_OF[k]][k] for k in KERNELS
-         if PHASE_OF[k] in route_launches})
+         if PHASE_OF[k] in route_launches}, pack_geom,
+        route_launches["streamed"])
     grid = default_art.grid
     phase_launches = dict(route_launches)
     phase_launches["write_wall"], summary["write_wall"] = write_wall_phase(

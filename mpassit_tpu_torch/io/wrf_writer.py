@@ -387,9 +387,15 @@ class StreamingWriter:
                 raise self._exc
             try:
                 self._q.put(item, timeout=0.5)
-                return
             except queue.Full:
                 continue
+            # the thread may have died after the check above and dropped
+            # this item: raise now rather than at the next put. It can
+            # still die after this check; ``finish`` re-raises its error
+            # after the join, so a dropped block always surfaces there
+            if self._exc is not None:
+                raise self._exc
+            return
 
     def put(self, var, lev0, block):
         """Enqueue levels [lev0, lev0+k) of ``var`` (block (ny, nx[, k]));
@@ -471,23 +477,28 @@ class StreamingWriter:
 
     def finish(self):
         """Drain the queue, write the deferred P_TOP, flush the min/max
-        debug log, close the file."""
-        self._put_checked(None)
-        self._thread.join()
-        if self._exc is not None:
-            raise self._exc
-        if self.f.has_var("P_TOP") and self._phyd_top is not None:
-            # P_TOP = min over domain of 0.8 * top level, seeded with the
-            # field max (write_data.F90:1362-1372)
-            ptop = self._phyd_max
-            sel = self._phyd_top >= 10.0
-            if sel.any():
-                ptop = min(ptop, float((self._phyd_top[sel] * 0.8).min()))
-            self.f.write_var("P_TOP", np.array([ptop], np.float32))
-        for var, (lo, hi) in self._minmax.items():
-            log.debug(" %s %s %s", var, lo, hi)
-        self.f.close()
-        self.f = None
+        debug log, close the file. The file is closed whether or not
+        this raises."""
+        try:
+            self._put_checked(None)
+            self._thread.join()
+            if self._exc is not None:
+                raise self._exc
+            if self.f.has_var("P_TOP") and self._phyd_top is not None:
+                # P_TOP = min over domain of 0.8 * top level, seeded with
+                # the field max (write_data.F90:1362-1372)
+                ptop = self._phyd_max
+                sel = self._phyd_top >= 10.0
+                if sel.any():
+                    ptop = min(ptop,
+                               float((self._phyd_top[sel] * 0.8).min()))
+                self.f.write_var("P_TOP", np.array([ptop], np.float32))
+            for var, (lo, hi) in self._minmax.items():
+                log.debug(" %s %s %s", var, lo, hi)
+        finally:
+            if self.f is not None:
+                self.f.close()
+                self.f = None
 
 
 class NullStreamWriter:

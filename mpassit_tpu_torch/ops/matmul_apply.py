@@ -28,6 +28,11 @@ and gather routes every ``precision`` runs the same f32 arithmetic.
 
 Both engines take host sources as one (n_src, C) array or as a list of
 column blocks, assembled on the device without a host concatenation.
+When one full-width pass of the packed engine would not fit the device
+budget (``device_budget``), it runs in column groups, each uploaded,
+applied by one kernel launch, fetched and freed in turn
+(``PackedSlabRegridder._grouped_width``); the result is the full-width
+one, bit for bit.
 """
 
 from __future__ import annotations
@@ -53,6 +58,13 @@ CB = 256
 #: columns per kernel launch in SlabMatmulRegridder.apply_np: bounds device
 #: residency to one (nyp, nxp, FETCH) output group
 FETCH = 512
+#: device bytes of one host fetch: a strip crosses in row chunks of at most
+#: this size, since ``Tensor.cpu`` first copies a strided slice into a
+#: contiguous device buffer (a whole CONUS strip would be 1.95 GB)
+FETCH_TMP = 1 << 28
+#: share of a CUDA device's free bytes the grouped apply plans on; the rest
+#: is left to the caching allocator's rounding and fragmentation
+FREE_SHARE = 0.9
 W_STEP = 8          # slab width quantum
 #: max unique source rows per tile (a 32x32 EDGE-stagger tile reads a
 #: (33, 33) window = 1089 rows of the mass grid)
@@ -319,44 +331,79 @@ def _chunk_slab_cached(slab_idx, loc, loc_w, W, dst_shape, cache_dir=None,
     return ch_src, loc8, W8
 
 
-def _src_to_device(src, Cp, device, pad_rows=0):
-    """Host source -> (n_src + pad_rows, Cp) f32 device tensor, zero-padded
-    columns (and rows: the gather route's chunks may read CH rows past
-    n_src).
+def _src_window_to_device(src, lo, gw, device, pad_rows=0):
+    """Packed columns [lo, lo + gw) of a host source -> (n_src + pad_rows,
+    gw) f32 device tensor, zero past the data (and in the pad rows: the
+    gather route's chunks may read CH rows past n_src). The full-width
+    upload is the window [0, Cp).
 
     Accepts one (n_src, C) array OR a list of column blocks summing to C:
-    blocks are copied one at a time into a preallocated device buffer, so
-    the host never materializes the concatenated matrix and the extra
-    host memory is one block."""
-    if not isinstance(src, (list, tuple)):
-        src = np.asarray(src, dtype=np.float32)
-        if src.ndim == 1:
-            src = src[:, None]
-        src = [src]
-    n_src = np.asarray(src[0]).shape[0]
-    buf = torch.zeros((n_src + pad_rows, Cp), dtype=torch.float32,
+    each block is sliced to the window, converted and copied into a
+    preallocated device buffer, so the host never materializes the
+    concatenated matrix, and converts only the window's columns (the JAX
+    package's copy converts the whole block first)."""
+    blocks = src if isinstance(src, (list, tuple)) else [src]
+    n_src = np.shape(blocks[0])[0]
+    buf = torch.zeros((n_src + pad_rows, gw), dtype=torch.float32,
                       device=device)
     off = 0
-    for b in src:
-        b = np.ascontiguousarray(np.asarray(b, dtype=np.float32))
-        if b.ndim == 1:
-            b = b[:, None]
-        buf[:n_src, off:off + b.shape[1]] = torch.from_numpy(b).to(device)
-        off += b.shape[1]
+    for b in blocks:
+        bw = 1 if np.ndim(b) == 1 else np.shape(b)[1]
+        a, c = max(off, lo), min(off + bw, lo + gw)
+        if a < c:
+            win = (np.asarray(b)[:, None] if np.ndim(b) == 1
+                   else b[:, a - off:c - off])
+            win = np.ascontiguousarray(win, dtype=np.float32)
+            buf[:n_src, a - lo:c - lo] = torch.from_numpy(win).to(device)
+        off += bw
     return buf
+
+
+def group_ranges(ranges, g, w):
+    """The method column ``ranges`` that meet columns [g, g + w), relative
+    to g: (sub-ranges, the methods' indices)."""
+    sub, ms = [], []
+    for m, (lo, hi) in enumerate(ranges):
+        a, b = max(lo, g), min(hi, g + w)
+        if a < b:
+            sub.append((a - g, b - g))
+            ms.append(m)
+    return tuple(sub), ms
+
+
+def device_budget(device, held=0) -> float:
+    """Device bytes the grouped packed apply may fill, its operands
+    (``held`` bytes, already on the device) included:
+    ``MPASSIT_DEVICE_BUDGET_GB`` when set; else, on a CUDA device, ``held``
+    plus FREE_SHARE of what the device can still give (its free bytes and
+    the caching allocator's reserved but unallocated bytes, read now); on
+    the CPU the JAX package's default of 12 GB."""
+    env = os.environ.get("MPASSIT_DEVICE_BUDGET_GB")
+    if env:
+        return float(env) * 1e9
+    if device.type == "cuda":
+        free = torch.cuda.mem_get_info(device)[0]
+        cached = (torch.cuda.memory_reserved(device)
+                  - torch.cuda.memory_allocated(device))
+        return held + FREE_SHARE * float(free + cached)
+    return 12e9
 
 
 def _fetch_strips(o, C, ny, nx, lo0, root_only, out, strip_sink):
     """Fetch columns [lo0, lo0 + o's width) ∩ [0, C) of a device result to
-    the host in CB-column strips: into ``out`` or to ``strip_sink``."""
+    the host in CB-column strips: into ``out`` or to ``strip_sink``. A
+    strip crosses in row chunks of at most FETCH_TMP bytes."""
     for lo in range(lo0, min(lo0 + o.shape[2], C), CB):
         cb_eff = min(CB, C - lo, lo0 + o.shape[2] - lo)
-        fetched = fetch_to_host(o[:ny, :nx, lo - lo0:lo - lo0 + cb_eff],
-                                root_only=root_only)
+        strip = (out[:, :, lo:lo + cb_eff] if strip_sink is None
+                 else np.empty((ny, nx, cb_eff), np.float32))
+        rows = max(1, FETCH_TMP // (4 * nx * cb_eff))
+        for r in range(0, ny, rows):
+            r1 = min(r + rows, ny)
+            fetch_to_host(o[r:r1, :nx, lo - lo0:lo - lo0 + cb_eff],
+                          root_only=root_only, out=strip[r:r1])
         if strip_sink is not None:
-            strip_sink(lo, fetched)
-        else:
-            out[:, :, lo:lo + cb_eff] = fetched
+            strip_sink(lo, strip)
 
 
 class _Operator:
@@ -429,11 +476,12 @@ class _Operator:
         return torch.index_select(src_dev, 0, self.slab_idx).view(
             self.n_tiles, self.W, src_dev.shape[1])
 
-    def _upload(self, src, Cp):
-        """Host source -> device, with the CH pad rows the gather route's
-        last chunks read."""
-        return _src_to_device(src, Cp, self.device,
-                              pad_rows=CH if self.route == "gather" else 0)
+    def _upload(self, src, w, lo=0):
+        """Columns [lo, lo + w) of a host source -> device, with the CH pad
+        rows the gather route's last chunks read."""
+        return _src_window_to_device(
+            src, lo, w, self.device,
+            pad_rows=CH if self.route == "gather" else 0)
 
 
 class SlabMatmulRegridder(_Operator):
@@ -626,21 +674,28 @@ class PackedSlabRegridder(_Operator):
     def Cp(self) -> int:
         return self.C_total + ((-self.C_total) % LANE)
 
-    def _apply_padded(self, src_dev):
-        """(n_src[+CH], Cp) device source -> (nyp, nxp, Cp) by the route's
-        kernel; columns past C_total are zeroed by the kernel."""
-        rot = dict(ranges=tuple(self.ranges), nty=self.nty, ntx=self.ntx,
-                   rotate=self.rotate, cosa=self._cosa_t, sina=self._sina_t)
+    def _apply_padded(self, src_dev, g=0):
+        """(n_src[+CH], w) device window of packed source columns
+        [g, g + w) -> (nyp, nxp, w) by one launch of the route's kernel,
+        over the methods that meet the window with their column ranges
+        relative to g; the rotation windows ride the window at g = 0.
+        Columns past C_total are zeroed by the kernel."""
+        ranges, ms = group_ranges(self.ranges, g, src_dev.shape[1])
+        kw = dict(ranges=ranges, nty=self.nty, ntx=self.ntx)
+        if g == 0:
+            kw.update(rotate=self.rotate, cosa=self._cosa_t,
+                      sina=self._sina_t)
         if self.route == "gather":
             ch, locs, ws = self._gather_dev()
-            return packed_gather_apply(src_dev, ch, locs, ws, W8=self.W8,
-                                       **rot)
+            return packed_gather_apply(src_dev, ch, [locs[m] for m in ms],
+                                       [ws[m] for m in ms], W8=self.W8, **kw)
         slab = self._slab(src_dev)
         if self.route == "onehot":
-            return onehot_apply_packed(self.As, slab,
-                                       precision=self.precision, **rot)
+            return onehot_apply_packed([self.As[m] for m in ms], slab,
+                                       precision=self.precision, **kw)
         locs, ws = self._ell_dev()
-        return packed_apply(slab, locs, ws, **rot)
+        return packed_apply(slab, [locs[m] for m in ms], [ws[m] for m in ms],
+                            **kw)
 
     def __call__(self, src_dev):
         """src (n_src, C_total) tensor on the operator's device, columns
@@ -654,14 +709,65 @@ class PackedSlabRegridder(_Operator):
         src_dev = torch.nn.functional.pad(src_dev.float(), (0, pad, 0, rows))
         return self._apply_padded(src_dev)[:, :, :self.C_total]
 
+    def _held_bytes(self) -> int:
+        """Device bytes of what each group's launch reads besides its
+        source window: the slab index, the route's operands (built here on
+        first use; the ELL arrays stand for the gather route's, which is
+        never grouped) and the rotation's cosa/sina."""
+        held = [self.slab_idx, self._cosa_t, self._sina_t]
+        if self.route == "onehot":
+            held += self.As
+        else:
+            held += [t for ts in self._ell_dev() for t in ts]
+        return sum(t.numel() * t.element_size() for t in held
+                   if t is not None)
+
+    def _grouped_width(self) -> int:
+        """Column-group width of the device-memory-bounded apply, or 0
+        when one full-width pass fits ``device_budget``. The JAX package's
+        rule, with what it leaves out counted: a column costs its source,
+        slab and output columns, all live during its group's launch; beside
+        them the device holds the operands (``_held_bytes``) and one fetch
+        chunk (FETCH_TMP). The halving keeps two groups' worth of columns
+        inside the rest, as in the JAX package. Group 0 keeps the rotation
+        windows and at least CB columns, and the width is rounded up to a
+        multiple of LANE, which the kernels' column blocks need: only these
+        floors may take a group past the budget."""
+        if self.Cp <= FETCH:
+            return 0
+        per_col = 4 * (self.n_src + self.n_tiles * self.W
+                       + self.nty * TY * self.ntx * TX)
+        held = self._held_bytes()
+        room = device_budget(self.device, held) - held - FETCH_TMP
+        if self.Cp * per_col <= room:
+            return 0
+        gw = FETCH
+        while gw > LANE and 2 * gw * per_col > room:
+            gw //= 2
+        if self.rotate:
+            gw = max(gw, CB, max(cv + n for (_, cv, n) in self.rotate))
+        return -(-gw // LANE) * LANE
+
     def apply_np(self, src, root_only: bool = False, strip_sink=None):
-        """Host apply in one full-width kernel pass, fetched in CB strips
-        (see SlabMatmulRegridder.apply_np). ``src`` may be a list of
-        column blocks; with ``strip_sink`` each strip streams to the sink
-        and None is returned."""
+        """Host apply in column groups of ``_grouped_width`` columns when
+        one full-width pass would not fit the device budget, else in one
+        group of Cp (always on the gather route, as in the JAX package).
+        Per group: the source window's upload, one launch of the route's
+        kernel (``_apply_padded``) and the fetch in CB strips (see
+        SlabMatmulRegridder.apply_np); the group is freed before the next
+        one is uploaded. ``src`` may be a list of column blocks; with
+        ``strip_sink`` each strip streams to the sink and None is
+        returned."""
+        gw = (self.Cp if self.route == "gather"
+              else self._grouped_width() or self.Cp)
         ny, nx = self.dst_shape
         out = None if strip_sink is not None else np.empty(
             (ny, nx, self.C_total), np.float32)
-        o = self._apply_padded(self._upload(src, self.Cp))
-        _fetch_strips(o, self.C_total, ny, nx, 0, root_only, out, strip_sink)
+        for g in range(0, self.Cp, gw):
+            src_dev = self._upload(src, min(gw, self.Cp - g), g)
+            o = self._apply_padded(src_dev, g)
+            del src_dev
+            _fetch_strips(o, self.C_total, ny, nx, g, root_only, out,
+                          strip_sink)
+            del o
         return out

@@ -12,6 +12,7 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
 
 _ENV_COORD = "MPASSIT_COORDINATOR"
 _ENV_NPROC = "MPASSIT_NUM_PROCESSES"
@@ -32,9 +33,15 @@ def is_primary() -> bool:
     return True
 
 
-def fetch_to_host(x, root_only: bool = False):
+def fetch_to_host(x, root_only: bool = False, out=None):
     """Device tensor -> host numpy array (the ESMF_FieldGather analog,
-    write_data.F90:1006). ``root_only`` changes nothing on one process."""
+    write_data.F90:1006). ``root_only`` changes nothing on one process.
+    With ``out`` (a host array of x's shape, a view or not) the transfer
+    lands there, without a host array of its own, and ``out`` is
+    returned."""
+    if out is not None:
+        torch.from_numpy(out).copy_(torch.as_tensor(x))
+        return out
     if isinstance(x, np.ndarray):
         return x
     return x.cpu().numpy()

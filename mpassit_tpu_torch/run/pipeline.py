@@ -2,7 +2,9 @@
 
 Sequence mirrors mpassit.F90:105-137: read namelist -> build target grid ->
 ingest MPAS mesh -> read fields -> generate/cache weights -> apply on the
-device -> wind fixups -> write WRF-compatible NetCDF. Method routing, the
+device -> wind fixups -> write WRF-compatible NetCDF, at the end or, with
+``stream_output``, strip by strip as the applies fetch them (the host then
+never holds the whole output). Method routing, the
 quirks and the host layers (config, grids, mesh, weights, io) are copies
 of the JAX package's, kept in this package with the same cache key and
 file format; the device-bound layers are ported.
@@ -35,7 +37,7 @@ from ..io.mpas_reader import (
     read_diag_data,
     read_hist_data,
 )
-from ..io.wrf_writer import RegridResult, write_output
+from ..io.wrf_writer import RegridResult, StreamingWriter, write_output
 from ..mesh.mpas import MPASMesh, mesh_from_file
 from ..weights.bilinear import (
     bilinear_cell_weights,
@@ -132,6 +134,15 @@ class _StripRouter:
         self.bufs.append((self.off, self.off + ncols, buf, squeeze, sink))
         self.off += ncols
 
+    def add_parts(self, parts, defer, deferred):
+        """An _ApplyBatch's parts, in column order: streamed where they
+        carry ``stream`` entries, buffered for their sinks otherwise."""
+        for k, _, squeeze, sink, _, stream in parts:
+            if stream is not None:
+                self.add_stream(stream, defer=defer, deferred=deferred)
+            else:
+                self.add_buffer(k, squeeze, sink)
+
     def __call__(self, lo, strip):
         hi = lo + strip.shape[2]
         for c0, c1, var, nlev in self.segs:
@@ -216,12 +227,7 @@ class _ApplyBatch:
                 off += k
         else:
             router = _StripRouter(writer, self.rg.dst_shape)
-            for k, _, squeeze, sink, _, stream in self.parts:
-                if stream is not None:
-                    router.add_stream(stream, defer=self.defer,
-                                      deferred=deferred)
-                else:
-                    router.add_buffer(k, squeeze, sink)
+            router.add_parts(self.parts, self.defer, deferred)
             if getattr(self.rg, "accepts_blocks", False):
                 self.rg.apply_np(src, root_only=self.root_only,
                                  strip_sink=router)
@@ -234,13 +240,15 @@ class _ApplyBatch:
 
 
 def _run_batches_packed(batches, rgs, weights, root_only, device,
-                        grid=None) -> bool:
+                        grid=None, writer=None, deferred=None) -> bool:
     """Cross-METHOD packing: when the cell-space methods (bilinear /
     nearest / conserve) all ride SlabMatmulRegridder engines, fuse their
     batches into ONE PackedSlabRegridder apply — one union-slab gather and
-    one kernel launch for every cell-located field in the run. Drained
-    batches are emptied; anything unpacked (vertex space, f64 engines)
-    runs normally afterwards. MPASSIT_NO_PACK=1 disables (test hook).
+    one kernel launch for every cell-located field in the run (one per
+    column group when the apply is grouped). Drained batches are emptied;
+    anything unpacked (vertex space, f64 engines) runs normally
+    afterwards. MPASSIT_NO_PACK=1 disables (test hook). With a ``writer``
+    the fetched strips stream to it through a _StripRouter.
 
     Parts tagged "rot_u"/"rot_v" (the mass winds under Lambert) are moved
     to the FRONT of the bilinear column range and the Q4 earth->grid
@@ -292,9 +300,18 @@ def _run_batches_packed(batches, rgs, weights, root_only, device,
     for k in cell_keys:
         for _, m, _, _, _, _ in batches[k].parts:
             src.extend(m if isinstance(m, list) else [m])
-    log.info("- packed apply: %s (%d cols, one kernel pass%s)",
+    log.info("- packed apply: %s (%d cols, one kernel pass%s%s)",
              "+".join(cell_keys), pk.C_total,
-             ", in-kernel wind rotation" if rotate_spec else "")
+             ", in-kernel wind rotation" if rotate_spec else "",
+             ", streamed to file" if writer is not None else "")
+    if writer is not None:
+        router = _StripRouter(writer, pk.dst_shape)
+        for k in cell_keys:
+            router.add_parts(batches[k].parts, batches[k].defer, deferred)
+            batches[k].parts = []
+        pk.apply_np(src, root_only=root_only, strip_sink=router)
+        router.finalize()
+        return rotate_spec is not None
     out = pk.apply_np(src, root_only=root_only)
     off = 0
     for k in cell_keys:
@@ -306,14 +323,42 @@ def _run_batches_packed(batches, rgs, weights, root_only, device,
     return rotate_spec is not None
 
 
+def _build_stream_plan(cfg, routing, data) -> dict:
+    """Per-category (out_name, units, desc) lists for StreamingWriter:
+    the schema the in-memory path derives from RegridResult, known before
+    any apply runs."""
+    def ent(specs):
+        return [(s.out_name, data.units[s.in_name],
+                 data.long_name[s.in_name]) for s in specs]
+
+    plan = {}
+    if cfg.interp_diag:
+        plan["diag2d"] = ent(
+            [s for s in routing.diag if data.fields[s.in_name].ndim == 1])
+        plan["diag3d"] = ent(
+            [s for s in routing.diag if data.fields[s.in_name].ndim == 2])
+    if cfg.interp_hist:
+        plan["patch2d"] = ent(routing.patch_2d)
+        plan["cons2d"] = ent(routing.cons_2d)
+        plan["nstd2d"] = ent(routing.nstd_2d)
+        plan["soil"] = ent(routing.soil)
+        plan["nz3d"] = ent(routing.nz_3d)
+        plan["nzp13d"] = ent(routing.nzp1_3d)
+        plan["vert3d"] = ent(routing.vert_3d)
+        plan["do_u"] = routing.do_u
+        plan["do_v"] = routing.do_v
+    return plan
+
+
 def _stack_apply(rg, data: InputData, specs, ndim: int, dtype=np.float32,
-                 root_only: bool = False):
+                 root_only: bool = False, writer=None):
     """One-shot bundle apply (per-field conservative regrids,
-    interp_as_bundle=.false.). Returns [(out_name, arr, units, desc)]."""
+    interp_as_bundle=.false.). Returns [(out_name, arr, units, desc)], or
+    [] when the result streams to ``writer``."""
     batch = _ApplyBatch(rg, dtype, root_only=root_only)
     res = []
     batch.add_stack(data, specs, ndim, res.extend)
-    batch.run()
+    batch.run(writer=writer)
     return res
 
 
@@ -379,8 +424,6 @@ def _check_ported(cfg: Config) -> None:
     """Options of the JAX package that this package does not run yet:
     raise rather than silently ignore them."""
     todo = []
-    if cfg.stream_output:
-        todo.append("stream_output=.true. (ROADMAP.md queue 1, item 4)")
     if cfg.n_device_shards not in (0, 1):
         todo.append(f"n_device_shards={cfg.n_device_shards} "
                     "(ROADMAP.md queue 1, item 8)")
@@ -502,6 +545,17 @@ def _run_pipeline(cfg: Config, device, dtype) -> PipelineArtifacts:
         batches: dict[str, _ApplyBatch] = {}
         root_only = cfg.fetch_root_only
 
+        # stream_output: the whole output schema is created now, then
+        # every apply below writes its fetched strips into the file
+        writer = None
+        deferred: dict = {}
+        if cfg.stream_output:
+            plan = _build_stream_plan(cfg, routing, data)
+            with timer("write_to_file"):
+                writer = StreamingWriter(
+                    cfg.output_file, cfg, grid, data, plan, mesh.nz,
+                    mesh.nzp1, mesh.nsoil, mesh.zs).open()
+
         def batch_for(key: str) -> _ApplyBatch:
             if key not in batches:
                 batches[key] = _ApplyBatch(rgs[key], np_dtype,
@@ -523,6 +577,13 @@ def _run_pipeline(cfg: Config, device, dtype) -> PipelineArtifacts:
                 data, d2, 2, lambda r: setattr(res, "diag2d", r))
             batch_for("bilinear").add_stack(
                 data, d3, 3, lambda r: setattr(res, "diag3d", r))
+            if writer is not None and cfg.proj_code == PROJ_LC:
+                # U10/V10 await the post-apply Q4 rotation: buffered
+                # instead of streamed unrotated
+                m2 = {s.in_name: s.out_name for s in d2}
+                if "u10" in m2 and "v10" in m2:
+                    batch_for("bilinear").defer = frozenset(
+                        (m2["u10"], m2["v10"]))
 
         if cfg.interp_hist:
             bil = batch_for("bilinear")
@@ -543,13 +604,15 @@ def _run_pipeline(cfg: Config, device, dtype) -> PipelineArtifacts:
                         lambda r: setattr(res, "cons2d", r))
                 else:
                     # interp_as_bundle=.false.: conservative fields
-                    # regridded one at a time (interp.F90:368-416)
+                    # regridded one at a time (interp.F90:368-416),
+                    # streamed when writing as it goes
                     res.cons2d = [
                         one
                         for s in routing.cons_2d
                         for one in _stack_apply(rgs["conserve"], data, [s], 2,
                                                 np_dtype,
-                                                root_only=root_only)
+                                                root_only=root_only,
+                                                writer=writer)
                     ]
             if routing.nstd_2d:
                 batch_for("nearest").add_stack(
@@ -583,11 +646,14 @@ def _run_pipeline(cfg: Config, device, dtype) -> PipelineArtifacts:
                 stream=[("HGT", None)])
         else:
             res.hgt = grid.hgt
+            if writer is not None:
+                writer.put("HGT", 0, np.asarray(grid.hgt, np.float32))
 
         winds_rotated = _run_batches_packed(batches, rgs, weights,
-                                            root_only, device, grid=grid)
+                                            root_only, device, grid=grid,
+                                            writer=writer, deferred=deferred)
         for b in batches.values():
-            b.run()
+            b.run(writer=writer, deferred=deferred)
         wind_batch.run()
 
         if cfg.interp_diag:
@@ -595,14 +661,22 @@ def _run_pipeline(cfg: Config, device, dtype) -> PipelineArtifacts:
             names2 = [s.in_name for s in d2]
             if "u10" in names2 and "v10" in names2 and cfg.proj_code == PROJ_LC:
                 iu, iv = names2.index("u10"), names2.index("v10")
-                u, v = rotate_winds(
-                    torch.as_tensor(res.diag2d[iu][1], device=device),
-                    torch.as_tensor(res.diag2d[iv][1], device=device),
-                    on_device(grid.cosa), on_device(grid.sina))
-                res.diag2d[iu] = (res.diag2d[iu][:1] + (u.cpu().numpy(),)
-                                  + res.diag2d[iu][2:])
-                res.diag2d[iv] = (res.diag2d[iv][:1] + (v.cpu().numpy(),)
-                                  + res.diag2d[iv][2:])
+                uo, vo = d2[iu].out_name, d2[iv].out_name
+                # streamed: the deferred (ny, nx, 1) buffers
+                u, v = ((deferred[uo][0][:, :, 0], deferred[vo][0][:, :, 0])
+                        if writer is not None
+                        else (res.diag2d[iu][1], res.diag2d[iv][1]))
+                u, v = rotate_winds(torch.as_tensor(u, device=device),
+                                    torch.as_tensor(v, device=device),
+                                    on_device(grid.cosa), on_device(grid.sina))
+                u, v = u.cpu().numpy(), v.cpu().numpy()
+                if writer is not None:
+                    writer.put(uo, 0, u.astype(np.float32))
+                    writer.put(vo, 0, v.astype(np.float32))
+                else:
+                    for i, a in ((iu, u), (iv, v)):
+                        res.diag2d[i] = (res.diag2d[i][:1] + (a,)
+                                         + res.diag2d[i][2:])
 
         if cfg.interp_hist:
             # staggered winds (interp.F90:256-328, quirks Q4/Q6); skipped
@@ -617,19 +691,37 @@ def _run_pipeline(cfg: Config, device, dtype) -> PipelineArtifacts:
                 umass, vmass = u.cpu().numpy(), v.cpu().numpy()
 
             # center -> EDGE1/EDGE2 spherical bilinear regrid (quirk Q6,
-            # interp.F90:295-328) through the same apply engines
-            def restagger(key, mass):
-                return rgs[key].apply_np(mass.reshape(grid.n_points, -1),
-                                         root_only=root_only)
+            # interp.F90:295-328) through the same apply engines; streamed
+            # strip by strip when writing as it goes
+            def restagger(key, var, mass):
+                m = mass.reshape(grid.n_points, -1)
+                if writer is None:
+                    return rgs[key].apply_np(m, root_only=root_only)
+                batch = _ApplyBatch(rgs[key], np_dtype, root_only=root_only)
+                batch.add(m, None, stream=[(var, m.shape[1])])
+                batch.run(writer=writer)
+                return None
 
             if routing.do_u:
-                res.u = restagger("edge1", umass)
+                res.u = restagger("edge1", "U", umass)
             if routing.do_v:
-                res.v = restagger("edge2", vmass)
+                res.v = restagger("edge2", "V", vmass)
         res.zs = mesh.zs
 
+    if writer is not None:
+        t0 = time.perf_counter()
+        writer.finish()
+        dt = time.perf_counter() - t0
+        timings.add("write_to_file", dt)
+        # what the run waited for at the end; the schema's open is charged
+        # to write_to_file too. overlap = 1 - finish_wait / stream_write
+        timings.stages["stream_finish_wait_s"] = dt
+        timings.stages["stream_write_s"] = writer.stats["t_write_s"]
+
     # test hook: dump the full-precision regrid results before the f32
-    # NetCDF write (the file caps agreement at f32 rounding)
+    # NetCDF write (the file caps agreement at f32 rounding); a streamed
+    # run dumps what it held (the mass winds' restagger outputs are not
+    # among them)
     dump = os.environ.get("MPASSIT_DUMP_RESULT")
     if dump:
         arrs = {}
@@ -642,8 +734,9 @@ def _run_pipeline(cfg: Config, device, dtype) -> PipelineArtifacts:
                 arrs[name] = getattr(res, name)
         np.savez(dump, **arrs)
 
-    with timer("write_to_file"):
-        write_output(cfg.output_file, cfg, grid, data, res)
+    if writer is None:
+        with timer("write_to_file"):
+            write_output(cfg.output_file, cfg, grid, data, res)
 
     return PipelineArtifacts(cfg=cfg, grid=grid, mesh=mesh, routing=routing,
                              data=data, result=res, regridders=rgs,

@@ -272,7 +272,7 @@ def test_strip_router_streams_like_in_memory(f32_runs):
 
 
 @pytest.mark.parametrize("override,env", [
-    ({"stream_output": True}, None),
+    ({"n_device_shards": -1}, None),
     ({"n_device_shards": 2}, None),
     ({"source_decomp": "ring", "n_device_shards": 2}, None),
     ({}, ("MPASSIT_PROFILE", "/tmp/prof")),
