@@ -9,7 +9,8 @@ without one; it imports nothing of JAX and nothing of the JAX package
 one JSON line:
 
 - device: the card (name and power limit from nvidia-smi), torch and CUDA
-  versions, whether h5py and ninja are importable;
+  versions, whether h5py and ninja are importable and whether
+  ``io/netcdf_c.available()`` finds a libnetcdf;
 - build: compiles the five sources of mpassit_tpu_torch/csrc/ with nvcc,
   one process each, started together; for the two tensor-core sources,
   onehot_apply.cu and ell_split_apply.cu, the registers, spills and shared
@@ -17,7 +18,9 @@ one JSON line:
   HMMA (tensor-core) and FFMA instructions in their SASS (cuobjdump
   -sass); HGMMA must not be 0 in either;
 - inputs: a synthetic global MPAS mesh of 655,362 cells (the size of
-  MPAS's x1.655362 30-km mesh), nz=55, nsoil=4, with seeded smooth fields
+  MPAS's x1.655362 30-km mesh; kept on disk in the mesh cache of
+  tools/kernel_variants.py, where production_e2e finds it), nz=55,
+  nsoil=4, with seeded smooth fields
   for every variable of the shipped parm/ varlists and the vertex field
   ``vorticity``, written as NetCDF4
   (or, when h5py is missing, as CDF-2 through scipy with ``Time`` the
@@ -39,6 +42,16 @@ one JSON line:
   variable's largest sampled magnitude; the gather route's result must
   equal the default route's bit for bit, the one-hot route's within 1e-6
   of each variable's largest magnitude;
+- main_path_profiled: the CLI on the default route, weights cache warm,
+  once unprofiled and then with MPASSIT_PROFILE set: every variable must
+  be bit for bit the unprofiled default run's; the trace must hold
+  packed_apply's kernel under its own symbol (``ell_apply_kernel<SlabRows``)
+  as often as its launch counter counts, the launches owed (3), on the
+  stream of torch's own kernels. It prints tools/trace_summary.py's
+  device idle share of the run and of each stage, with the top device
+  operations and the longest idle gaps of the run and of interp_data, and
+  the profiled interp_data against the unprofiled one (the profiler's
+  overhead);
 - main_path_streamed: the production configuration of the JAX package's
   tools/bench_production.py: the CLI with stream_output = .true. on a copy
   of parm/ whose histlist_3d adds the vertex field ``vorticity VORT``
@@ -88,12 +101,19 @@ one JSON line:
   (v0 = packed_apply, v1, v2 at CC 128 and 256, the write wall at 512
   columns) on this mesh's cached bilinear operator at the full target
   width, with its spot checks (v1 vs v2 within 1e-6, v1 vs v0 within 3e-5
-  of max|v0|).
+  of max|v0|);
+- production_e2e: mpassit_tpu_torch.tools.bench_production at this mesh
+  size with ``--writer digest`` (no h5py on the card): its inputs, the
+  warmed weights, then the streamed and the in-memory run each in a
+  process of its own, their stages, peak host and device memory and
+  pre-first-apply costs, and the fetch probe. It fails unless both
+  children exit 0 and their digest maps are equal and complete. It prints
+  the tool's JSON with ``reduced``.
 
 The counters of every kernel are zeroed just before each phase that drives
-a path (the three main-path routes, main_path_streamed, write_wall,
-kernel_variants) and read just after; the kernels line takes each
-kernel's launches from the phase that runs it.
+a path (the three main-path routes, main_path_profiled,
+main_path_streamed, write_wall, kernel_variants) and read just after; the
+kernels line takes each kernel's launches from the phase that runs it.
 
 Then the kernels line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed phase exits non-zero.
@@ -233,7 +253,7 @@ def prepare_inputs(work, parm, ncells, seed, classic):
     import numpy as np
 
     from mpassit_tpu_torch.fields.registry import build_routing
-    from mpassit_tpu_torch.mesh.synthetic import synthetic_voronoi_mesh
+    from mpassit_tpu_torch.tools.kernel_variants import _cached_mesh
 
     if classic:
         from mpassit_tpu_torch.testing import (
@@ -247,8 +267,8 @@ def prepare_inputs(work, parm, ncells, seed, classic):
         )
     os.makedirs(work, exist_ok=True)
     t0 = time.perf_counter()
-    mesh = synthetic_voronoi_mesh(ncells=ncells, nz=NZ, nsoil=NSOIL,
-                                  seed=seed + 1)
+    # kept on disk as tools/bench_production.py looks for it (seed 1 there)
+    mesh = _cached_mesh(work, ncells, NZ, NSOIL, seed=seed + 1)
     t_mesh = time.perf_counter() - t0
     vparm = _vorticity_parm(parm, work)
     routing = build_routing(vparm, True, True, True)
@@ -1206,6 +1226,156 @@ def streamed_phase(pipeline, nml, default_art, device, seed, reduced,
     return launches
 
 
+#: packed_apply's kernel in a trace (names come demangled): ell_apply.cuh's
+#: template on the slab rows
+PACKED_SYMBOL = "ell_apply_kernel<SlabRows"
+
+
+def profiled_phase(pipeline, nml, default_art, arts, calls, reduced):
+    """main_path_profiled: the CLI on the default route (weights cache
+    warm) once unprofiled, for the profiler's overhead, then with
+    MPASSIT_PROFILE set. Fails unless every result of the profiled run is
+    bit for bit the unprofiled default run's, and the trace holds
+    packed_apply's kernel as often as its counter counts, the launches
+    owed, on the stream of torch's own kernels. Returns the profiled
+    run's launches."""
+    import gc
+
+    import torch
+
+    from mpassit_tpu_torch.ops import matmul_apply
+    from mpassit_tpu_torch.tools import trace_summary as ts
+
+    prof_dir = os.path.join(WORK, "profile")
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    arts.clear()
+    if pipeline.main([nml]) != 0 or not arts:
+        raise SystemExit("main_path_profiled: the unprofiled run failed")
+    unprofiled = arts[0].timings.stages
+    arts.clear()
+    calls.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.environ["MPASSIT_PROFILE"] = prof_dir
+    _zero_counters()
+    t0 = time.perf_counter()
+    try:
+        rc = pipeline.main([nml])
+    finally:
+        del os.environ["MPASSIT_PROFILE"]
+    t_main = time.perf_counter() - t0
+    launches, plain_calls = _counters()
+    if rc != 0 or not arts:
+        raise SystemExit(f"main_path_profiled failed: rc={rc}")
+    art = arts[0]
+    art.regridders.clear()
+    expected = expected_launches("ell", calls, matmul_apply.FETCH)
+    path = os.path.join(prof_dir, f"trace_{os.getpid()}.json")
+    t0 = time.perf_counter()
+    events = ts.load_events(path)
+    summ = ts.summarize(events)
+    t_summary = time.perf_counter() - t0
+    kernels = [e for _, _, e in ts.device_events(events)
+               if e.get("cat") == "kernel"]
+    ours = [e for e in kernels if PACKED_SYMBOL in e["name"]]
+    mine = {id(e) for e in ours}
+    streams = sorted({str(e.get("args", {}).get("stream")) for e in ours})
+    torch_streams = sorted({str(e.get("args", {}).get("stream"))
+                            for e in kernels if id(e) not in mine})
+    diff = compare_results(art.result, default_art.result)
+    stages = art.timings.stages
+    run, interp = summ["run"], summ["stages"].get("interp_data", {})
+
+    def short(ops):
+        """Device operations with their names cut to 100 characters (the
+        trace keeps them whole)."""
+        return [{**o, "name": o["name"][:100]} for o in ops or []]
+    line = {
+        "phase": "main_path_profiled", "rc": rc, "t_s": t_main,
+        "trace": os.path.relpath(path, HERE),
+        "trace_bytes": os.path.getsize(path), "summary_s": t_summary,
+        "stages_s": stages,
+        "unprofiled_stages_s": unprofiled,
+        "interp_data_unprofiled_s": unprofiled["interp_data"],
+        "profiler_overhead_interp_data": (stages["interp_data"]
+                                          / unprofiled["interp_data"] - 1),
+        "run_idle_share": run["idle_share"], "run_window_s": run["window_s"],
+        "run_busy_s": run["busy_s"],
+        "interp_data_idle_share": interp.get("idle_share"),
+        "interp_data_busy_s": interp.get("busy_s"),
+        "stage_idle_share": {k: v["idle_share"]
+                             for k, v in summ["stages"].items()},
+        "run_top_ops": short(run["top_ops"]),
+        "run_longest_gaps": run["longest_gaps"],
+        "interp_data_top_ops": short(interp.get("top_ops")),
+        "interp_data_longest_gaps": interp.get("longest_gaps"),
+        "device_events": summ["device_events"],
+        "packed_apply_in_trace": len(ours),
+        "packed_apply_names": sorted({e["name"][:80] for e in ours}),
+        "packed_apply_streams": streams, "torch_kernel_streams": torch_streams,
+        "launches": launches, "expected_launches": expected,
+        "plain_calls": plain_calls, "vs_default_route": diff,
+        "reduced": reduced}
+    line["ok"] = ok_ = bool(
+        diff["bit_identical"] and launches == expected
+        and not any(plain_calls.values())
+        and len(ours) == launches["packed_apply"] == expected["packed_apply"]
+        and torch_streams and set(streams) <= set(torch_streams))
+    emit(line)
+    art.result = art.data = None
+    arts.clear()
+    if not ok_:
+        raise SystemExit("main_path_profiled failed its checks")
+    return launches
+
+
+def production_phase(ncells, timeout=600):
+    """production_e2e: tools/bench_production.py with ``--writer digest``
+    at ``ncells`` in processes of its own (the mesh cache and the built
+    kernel libraries of the earlier phases found). Fails unless both
+    children exit 0 and their digest maps are equal and complete. The tool
+    runs in a session of its own, which is killed whole at ``timeout``
+    seconds."""
+    import signal
+
+    out = os.path.join(WORK, "production_e2e_torch.json")
+    cmd = [sys.executable, "-m", "mpassit_tpu_torch.tools.bench_production",
+           "--writer", "digest", "--ncells", str(ncells),
+           "--cache-dir", WORK, "--out", out, "--timeout", str(timeout)]
+    env = dict(os.environ, MPASSIT_PLATFORM="cuda",
+               PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise SystemExit(f"production_e2e: over {timeout} s, killed")
+    t_s = time.perf_counter() - t0
+    res = {}
+    if os.path.exists(out):
+        with open(out) as f:
+            res = json.load(f)
+    line = {"phase": "production_e2e", "rc": proc.returncode, "t_s": t_s,
+            "cmd": " ".join(cmd[1:]), **res,
+            "reduced": res.get("reduced", [])}
+    line["ok"] = ok_ = bool(
+        proc.returncode == 0 and res.get("ok")
+        and res.get("streamed_equals_inmemory_digest")
+        and not res.get("writer_mismatch") and not res.get("digest_missing")
+        and not res.get("rss_run_errors")
+        and res.get("writer") == "digest")
+    if not ok_:
+        line["stdout_tail"] = stdout[-1500:]
+        line["stderr_tail"] = stderr[-1500:]
+    emit(line)
+    if not ok_:
+        raise SystemExit("production_e2e failed its checks")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1228,12 +1398,14 @@ def main(argv=None) -> int:
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
     has_h5py = importable("h5py")
+    from mpassit_tpu_torch.io import netcdf_c
     # the plain one-hot versions' "highest" product needs full f32
     torch.backends.cuda.matmul.allow_tf32 = False
     emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
           "h5py": has_h5py, "ninja": importable("ninja"),
+          "libnetcdf": netcdf_c.available(),
           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32})
     device = torch.device("cuda", 0)
 
@@ -1440,6 +1612,10 @@ def main(argv=None) -> int:
     for k in ("MPASSIT_ELL_KERNEL", "MPASSIT_GATHER_KERNEL"):
         os.environ.pop(k, None)
 
+    # --- the default route again, profiled ---------------------------------
+    route_launches["profiled"] = profiled_phase(
+        pipeline, nml, default_art, arts, calls, reduced)
+
     # --- the production configuration: streamed, grouped ------------------
     arts.clear()
     calls.clear()
@@ -1470,6 +1646,11 @@ def main(argv=None) -> int:
     phase_launches["kernel_variants"] = kernel_variants_phase(
         default_art, device, args.seed, reduced)
     del default_art, arts[:], grid
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- the production tool, its runs in processes of their own ----------
+    production_phase(args.ncells)
     shutil.rmtree(WORK, ignore_errors=True)
 
     kernels = [{

@@ -15,6 +15,12 @@ operator and apply on ``device``; ``main`` takes it from
 CUDA device every packed and slab apply launches a Hopper kernel of the
 apply route that ``MPASSIT_ELL_KERNEL``/``MPASSIT_GATHER_KERNEL`` pick
 (ops/matmul_apply.py); on the CPU they run its plain PyTorch version.
+
+``MPASSIT_PROFILE=<dir>`` (counterpart of the JAX package's
+``jax.profiler.trace``) records the run with ``torch.profiler``: host
+activity, and the device's on a CUDA device, each ``Timings`` stage a
+``record_function`` span; the Chrome trace lands in ``<dir>`` as
+``trace_<pid>.json`` (``tools/trace_summary.py`` reads it).
 """
 
 from __future__ import annotations
@@ -67,17 +73,22 @@ class Timings:
 class _Timer:
     """Host wall clock of one stage; on a CUDA device the stage ends with
     a synchronize, so queued device work is charged to the stage that
-    issued it."""
+    issued it. The stage is also a ``record_function`` span, which a
+    profiled run (MPASSIT_PROFILE) records with the device work inside
+    it."""
 
     def __init__(self, timings: Timings, name: str, device=None):
         self.t, self.name, self.device = timings, name, device
 
     def __enter__(self):
+        self.span = torch.profiler.record_function(self.name)
+        self.span.__enter__()
         self.t0 = time.perf_counter()
 
     def __exit__(self, *a):
         if self.device is not None and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        self.span.__exit__(*a)
         self.t.add(self.name, time.perf_counter() - self.t0)
         log.info("- %s: %.3fs", self.name, self.t.stages[self.name])
 
@@ -430,8 +441,6 @@ def _check_ported(cfg: Config) -> None:
     if cfg.source_decomp != "replicate":
         todo.append(f"source_decomp={cfg.source_decomp!r} "
                     "(ROADMAP.md queue 1, item 8)")
-    if os.environ.get("MPASSIT_PROFILE"):
-        todo.append("MPASSIT_PROFILE (ROADMAP.md queue 1, item 9)")
     if todo:
         raise NotImplementedError(
             "not ported to mpassit_tpu_torch yet: " + "; ".join(todo))
@@ -439,13 +448,36 @@ def _check_ported(cfg: Config) -> None:
 
 def run_pipeline(cfg: Config, device, dtype=None) -> PipelineArtifacts:
     """Run the whole regrid on ``device`` (a torch.device or its name).
-    ``dtype`` defaults to the namelist's compute_dtype."""
+    ``dtype`` defaults to the namelist's compute_dtype. With
+    MPASSIT_PROFILE set, the run is recorded into a trace there."""
     _check_ported(cfg)
     device = torch.device(device)
     if dtype is None:
         dtype = (torch.float64 if cfg.compute_dtype == "float64"
                  else torch.float32)
-    return _run_pipeline(cfg, device, dtype)
+    prof_dir = os.environ.get("MPASSIT_PROFILE")
+    if not prof_dir:
+        return _run_pipeline(cfg, device, dtype)
+    return _profiled(prof_dir, device,
+                     lambda: _run_pipeline(cfg, device, dtype))
+
+
+def _profiled(out_dir: str, device, run):
+    """``run()`` under torch.profiler (host activity, plus the device's on
+    a CUDA device; no shapes, no stacks), then its Chrome trace written
+    to ``out_dir``/trace_<pid>.json (the directory made if missing)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(out_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        art = run()
+    path = os.path.join(out_dir, f"trace_{os.getpid()}.json")
+    prof.export_chrome_trace(path)
+    log.info("- profile trace: %s", path)
+    return art
 
 
 def _run_pipeline(cfg: Config, device, dtype) -> PipelineArtifacts:
@@ -709,9 +741,11 @@ def _run_pipeline(cfg: Config, device, dtype) -> PipelineArtifacts:
         res.zs = mesh.zs
 
     if writer is not None:
-        t0 = time.perf_counter()
-        writer.finish()
-        dt = time.perf_counter() - t0
+        # a write_to_file span of its own: what the run waits for here
+        with torch.profiler.record_function("write_to_file"):
+            t0 = time.perf_counter()
+            writer.finish()
+            dt = time.perf_counter() - t0
         timings.add("write_to_file", dt)
         # what the run waited for at the end; the schema's open is charged
         # to write_to_file too. overlap = 1 - finish_wait / stream_write

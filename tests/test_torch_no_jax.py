@@ -3,9 +3,10 @@ that imports only mpassit_tpu_torch (its pipeline, its own host layers, the
 kernel modules and the kernel-variants tool) runs a tiny pipeline on the
 CPU on each apply route (default, MPASSIT_ELL_KERNEL=0,
 MPASSIT_GATHER_KERNEL=1) and the tool's problem build and variant run, and
-finds neither ``jax`` nor any ``mpassit_tpu`` module in sys.modules; and no
-source file of the port, nor chip_smoke.py, names jax or mpassit_tpu in an
-absolute import."""
+finds neither ``jax`` nor any ``mpassit_tpu`` module in sys.modules, nor the
+JAX package's ``bench`` or ``tools`` (the production tool and the trace
+reader imported too); and no source file of the port, nor chip_smoke.py,
+names jax, mpassit_tpu, bench or tools in an absolute import."""
 
 import ast
 import os
@@ -24,7 +25,8 @@ torch.set_num_threads(2)
 from mpassit_tpu_torch.run.pipeline import run_pipeline
 from mpassit_tpu_torch.ops import gather_kernel, onehot_kernel
 from mpassit_tpu_torch.ops import variant_kernels, write_wall
-from mpassit_tpu_torch.tools import kernel_variants
+from mpassit_tpu_torch.tools import bench_production, kernel_variants
+from mpassit_tpu_torch.tools import trace_summary
 from mpassit_tpu_torch.config import Config
 from mpassit_tpu_torch.mesh.synthetic import synthetic_voronoi_mesh
 from mpassit_tpu_torch.testing import (
@@ -78,7 +80,8 @@ ell, _ = kernel_variants.build_problem(2000, 41, 25, os.path.join(d, "kv"))
 assert kernel_variants.run_variants(ell, "cpu", cols=128)["ok"]
 bound = [m for m in sys.modules
          if m == "jax" or m.startswith(("jax.", "jaxlib"))
-         or m == "mpassit_tpu" or m.startswith("mpassit_tpu.")]
+         or m == "mpassit_tpu" or m.startswith("mpassit_tpu.")
+         or m.split(".")[0] in ("bench", "tools")]
 print("BOUND", bound)
 assert not bound, bound
 print("NO_JAX_OK")
@@ -98,7 +101,7 @@ def test_pipeline_runs_without_importing_jax(tmp_path):
 
 def _forbidden(name):
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "mpassit_tpu")
+    return top in ("jax", "jaxlib", "mpassit_tpu", "bench", "tools")
 
 
 def _sources():
