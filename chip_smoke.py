@@ -42,6 +42,24 @@ one JSON line:
   variable's largest sampled magnitude; the gather route's result must
   equal the default route's bit for bit, the one-hot route's within 1e-6
   of each variable's largest magnitude;
+- main_path_sharded: the CLI on the default route once more, unsharded
+  (caches warm: this phase's yardstick), then with n_device_shards = -1
+  as a world of one process over NCCL (MPASSIT_COORDINATOR,
+  MPASSIT_NUM_PROCESSES=1, MPASSIT_PROCESS_ID=0; the process group is
+  started by the CLI function and destroyed when it returns), once per
+  source_decomp: replicate must be bit for bit the default route's result
+  with packed_apply's 3 launches on the rank's band of tile rows; ring and
+  allgather (plain torch engines, no kernel) within TOL_REL of the float64
+  evaluation, as the check phase measures. Each line has interp_data, its
+  split with the band gather (``band_gather_s``), peak device memory and
+  the unsharded run's; then main_path_sharded_ranks: with two cards or
+  more, the CLI as one process per card over NCCL on the replicate and
+  ring namelists beside one unsharded process (the file write left out:
+  no NetCDF4 writer on the card; rank 0 dumps its results through
+  MPASSIT_DUMP_RESULT): replicate bit for bit the default route, ring
+  within 1e-6 of each variable's largest magnitude of it, with rank 0's
+  stages and every rank's wall and peak device memory; with one card a
+  line saying it was not run and why;
 - main_path_profiled: the CLI on the default route, weights cache warm,
   once unprofiled and then with MPASSIT_PROFILE set: every variable must
   be bit for bit the unprofiled default run's; the trace must hold
@@ -111,8 +129,9 @@ one JSON line:
   the tool's JSON with ``reduced``.
 
 The counters of every kernel are zeroed just before each phase that drives
-a path (the three main-path routes, main_path_profiled,
-main_path_streamed, write_wall, kernel_variants) and read just after; the
+a path (the three main-path routes, each run of main_path_sharded,
+main_path_profiled, main_path_streamed, write_wall, kernel_variants) and
+read just after; the
 kernels line takes each kernel's launches from the phase that runs it.
 
 Then the kernels line, the nvidia-smi line, and last
@@ -138,6 +157,8 @@ TOL_KERNEL = 1e-6         # kernel vs plain, relative to max|plain|
 #: main_path_streamed's MPASSIT_DEVICE_BUDGET_GB: below one full-width pass
 #: of the CONUS pack (11.1 GB), so its packed apply runs in column groups
 BUDGET_GB = 4
+#: main_path_sharded's runs, by source_decomp
+SHARDED = ("replicate", "ring", "allgather")
 #: the H100 SXM's published rates (NVIDIA data sheet; at 700 W): device
 #: memory bytes/s, dense bf16 tensor-core and f32 CUDA-core FLOP/s
 HBM_BYTES_S = 3.35e12
@@ -245,11 +266,13 @@ def _namelist(parm, repl, extra):
 
 
 def prepare_inputs(work, parm, ncells, seed, classic):
-    """Mesh, grid/diag/hist files and two namelists under ``work``: the
-    shipped namelist on the shipped varlists, and the streamed one
+    """Mesh, grid/diag/hist files and the namelists under ``work``: the
+    shipped namelist on the shipped varlists, the streamed one
     (stream_output = .true.) on a copy of them with the vertex field
-    ``vorticity`` (whose seeded field the history file holds for both).
-    Returns the two namelist paths and what was written."""
+    ``vorticity`` (whose seeded field the history file holds for both),
+    and the shipped one sharded (n_device_shards = -1) with each
+    source_decomp of SHARDED. Returns the namelist paths in that order and
+    what was written."""
     import numpy as np
 
     from mpassit_tpu_torch.fields.registry import build_routing
@@ -296,6 +319,11 @@ def prepare_inputs(work, parm, ncells, seed, classic):
              "namelist_streamed.input": _namelist(
                  parm, repl, [f'varlist_dir = "{vparm}"', cache,
                               "stream_output = .true."])}
+    for decomp in SHARDED:
+        texts[f"namelist_sharded_{decomp}.input"] = _namelist(
+            parm, repl, [f'varlist_dir = "{parm}"', cache,
+                         "n_device_shards = -1",
+                         f'source_decomp = "{decomp}"'])
     nmls = []
     for name, text in texts.items():
         nmls.append(os.path.join(work, name))
@@ -1041,10 +1069,17 @@ def _result_arrays(res):
 def compare_results(got, ref):
     """Max abs and max rel (to the variable's max|ref|) difference over
     every result array, and whether all are bit-identical."""
-    import numpy as np
-
     a, b = _result_arrays(got), _result_arrays(ref)
     if list(a) != list(b):
+        raise AssertionError(f"result variables differ: {list(a)} {list(b)}")
+    return compare_results_arrays(a, b)
+
+
+def compare_results_arrays(a, b):
+    """compare_results on {name: array} maps (``_result_arrays``')."""
+    import numpy as np
+
+    if sorted(a) != sorted(b):
         raise AssertionError(f"result variables differ: {list(a)} {list(b)}")
     worst_abs = worst_rel = 0.0
     identical = True
@@ -1224,6 +1259,241 @@ def streamed_phase(pipeline, nml, default_art, device, seed, reduced,
     if not ok_:
         raise SystemExit("main_path_streamed failed its checks")
     return launches
+
+
+def sharded_phase(pipeline, nml, nml_sharded, default_art, device, seed,
+                  reduced, arts, calls, split):
+    """main_path_sharded: the CLI once unsharded on the default route
+    (weights and pack caches warm: the yardstick of this call), then on
+    each namelist of SHARDED (n_device_shards = -1) as a world of one
+    process over NCCL, started by ``pipeline.main`` from the MPASSIT_*
+    variables and destroyed when it returns. replicate must be bit for bit
+    the default route's result with packed_apply's 3 launches and no
+    plain call; ring and allgather (plain torch engines, no kernel) within
+    TOL_REL of the float64 evaluation. Each line has interp_data and its
+    split (the band gather bracketed by synchronizes as
+    ``band_gather_s``), the peak device memory and the unsharded run's.
+    Returns the replicate run's launches."""
+    import gc
+
+    import torch
+
+    from mpassit_tpu_torch.ops import matmul_apply
+    from mpassit_tpu_torch.tools.dryrun_multichip import free_port
+
+    gather = matmul_apply.gather_bands
+
+    def timed_gather(*a, **kw):
+        torch.cuda.synchronize(device)
+        t = time.perf_counter()
+        r = gather(*a, **kw)
+        torch.cuda.synchronize(device)
+        split["band_gather_s"] = (split.get("band_gather_s", 0.0)
+                                  + time.perf_counter() - t)
+        return r
+
+    def one_run(path, world):
+        arts.clear()
+        calls.clear()
+        split.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        env = ({"MPASSIT_COORDINATOR": f"tcp://localhost:{free_port()}",
+                "MPASSIT_NUM_PROCESSES": str(world),
+                "MPASSIT_PROCESS_ID": "0"} if world else {})
+        os.environ.update(env)
+        _zero_counters()
+        t0 = time.perf_counter()
+        try:
+            rc = pipeline.main([path])
+        finally:
+            for k in env:
+                del os.environ[k]
+        t_main = time.perf_counter() - t0
+        launches, plain_calls = _counters()
+        if rc != 0 or not arts:
+            raise SystemExit(f"main_path_sharded: {path} failed: rc={rc}")
+        if torch.distributed.is_initialized():
+            raise SystemExit("main_path_sharded: the process group outlived "
+                             "the run")
+        art = arts[0]
+        art.regridders.clear()
+        peak = torch.cuda.max_memory_allocated(device) / 1e9
+        return art, {"rc": rc, "t_s": t_main, "stages_s": art.timings.stages,
+                     "interp_data_split_s": dict(split),
+                     "launches": launches,
+                     "expected_launches": expected_launches(
+                         "ell", calls, matmul_apply.FETCH),
+                     "applies": list(calls), "plain_calls": plain_calls,
+                     "peak_device_gb": peak}
+
+    base_art, base = one_run(nml, 0)
+    base_art.result = base_art.data = None
+    del base_art
+    matmul_apply.gather_bands = timed_gather
+    launches = None
+    try:
+        for decomp, path in zip(SHARDED, nml_sharded):
+            art, line = one_run(path, 1)
+            line = {"phase": "main_path_sharded", "source_decomp": decomp,
+                    "n_device_shards": -1, "world": 1,
+                    "backend": "nccl" if device.type == "cuda" else "gloo",
+                    **line, "unsharded": {
+                        k: base[k] for k in ("stages_s",
+                                             "interp_data_split_s",
+                                             "launches", "peak_device_gb")},
+                    "reduced": reduced}
+            line["interp_data_vs_unsharded"] = (
+                line["stages_s"]["interp_data"]
+                / base["stages_s"]["interp_data"])
+            line["vs_default_route"] = diff = compare_results(
+                art.result, default_art.result)
+            if decomp == "replicate":
+                launches = line["launches"]
+                ok_ = (diff["bit_identical"]
+                       and launches == line["expected_launches"]
+                       and launches["packed_apply"] == 3
+                       and not any(line["plain_calls"].values()))
+            else:
+                try:
+                    errs = check_outputs(art, 4000, seed)
+                except AssertionError as e:
+                    errs = {"error": str(e)[:500]}
+                line["tol_rel"] = TOL_REL
+                line["per_var_max_rel_err"] = errs
+                ok_ = (all(isinstance(v, float) and v <= TOL_REL
+                           for v in errs.values())
+                       and not any(line["launches"].values())
+                       and not any(line["plain_calls"].values()))
+                if ok_:
+                    line["max_rel_err"] = max(errs.values())
+            line["ok"] = bool(ok_)
+            art.result = art.data = None
+            emit(line)
+            if not ok_:
+                raise SystemExit(f"main_path_sharded ({decomp}) failed its "
+                                 "checks")
+    finally:
+        matmul_apply.gather_bands = gather
+    return launches
+
+
+#: one rank of main_path_sharded_ranks: the CLI function with the file
+#: write left out (no NetCDF4 writer on the card), its stages, wall and
+#: peak device memory printed as the last line of its output
+RANK_CHILD = r"""
+import json, os, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from mpassit_tpu_torch.run import pipeline as p
+p.write_output = lambda *a: None
+arts, run = [], p.run_pipeline
+p.run_pipeline = lambda *a, **kw: arts.append(run(*a, **kw)) or arts[-1]
+t0 = time.perf_counter()
+rc = p.main([sys.argv[2]])
+print(json.dumps({"rc": rc, "t_s": time.perf_counter() - t0,
+                  "stages_s": arts[0].timings.stages if arts else None,
+                  "peak_device_gb": (torch.cuda.max_memory_allocated() / 1e9
+                                     if torch.cuda.is_available() else None)}))
+"""
+
+
+def _launch_ranks(nml, world, dump, timeout):
+    """``world`` processes of RANK_CHILD on ``nml`` (one process without
+    the MPASSIT_* variables when ``world`` is 0), each in a session of its
+    own, all killed past ``timeout`` s; rank 0 dumps its results to
+    ``dump``. Returns each process's last line."""
+    import signal
+
+    from mpassit_tpu_torch.tools.dryrun_multichip import free_port
+
+    port = free_port()
+    procs = []
+    for rank in range(max(world, 1)):
+        env = dict(os.environ, MPASSIT_DUMP_RESULT=dump,
+                   PYTHONPATH=HERE + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        if world:
+            env.update(MPASSIT_COORDINATOR=f"tcp://localhost:{port}",
+                       MPASSIT_NUM_PROCESSES=str(world),
+                       MPASSIT_PROCESS_ID=str(rank))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", RANK_CHILD, HERE, nml], cwd=WORK, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            start_new_session=True))
+    deadline = time.monotonic() + timeout
+    outs = []
+    try:
+        for proc in procs:
+            out, err = proc.communicate(
+                timeout=max(1, deadline - time.monotonic()))
+            lines = out.strip().splitlines()
+            outs.append(json.loads(lines[-1]) if lines
+                        else {"rc": proc.returncode, "stderr": err[-1500:]})
+    except subprocess.TimeoutExpired:
+        raise SystemExit(f"main_path_sharded_ranks: over {timeout} s")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.communicate()
+    return outs
+
+
+def ranks_phase(nml, nml_sharded, default_art, world, timeout=600):
+    """main_path_sharded_ranks: with ``world`` >= 2 cards, the CLI as
+    ``world`` processes, one card each, over NCCL on the sharded
+    namelists of replicate and ring (the shipped varlists at the full smoke
+    width), beside one unsharded process on the shipped namelist (caches
+    warm): replicate must be bit for bit the default route's result, ring
+    within TOL_ROUTE of each variable's largest magnitude of it (its sums
+    split over source blocks); rank 0's stages and every rank's wall and
+    peak device memory. With fewer cards, a line saying it was not run."""
+    import gc
+
+    import numpy as np
+
+    if world < 2:
+        emit({"phase": "main_path_sharded_ranks", "run": False,
+              "why": f"{world} CUDA device on this machine; several ranks "
+                     "need several cards"})
+        return
+    dump = os.path.join(WORK, "ranks_result.npz")
+    ref = _result_arrays(default_art.result)
+    base = None
+    for decomp, path in (("unsharded", nml),) + tuple(
+            zip(SHARDED[:2], nml_sharded[:2])):
+        if os.path.exists(dump):
+            os.remove(dump)
+        outs = _launch_ranks(path, 0 if decomp == "unsharded" else world,
+                             dump, timeout)
+        line = {"phase": "main_path_sharded_ranks", "source_decomp": decomp,
+                "world": 0 if decomp == "unsharded" else world,
+                "rc": [o.get("rc") for o in outs],
+                "t_s": [o.get("t_s") for o in outs],
+                "peak_device_gb": [o.get("peak_device_gb") for o in outs],
+                "stages_s": outs[0].get("stages_s"),
+                "errors": [o["stderr"] for o in outs if "stderr" in o]}
+        ok_ = all(o.get("rc") == 0 for o in outs) and os.path.exists(dump)
+        if ok_:
+            with np.load(dump) as z:
+                got = {k: z[k] for k in z.files}
+            line["vs_default_route"] = diff = compare_results_arrays(got, ref)
+            ok_ = (diff["bit_identical"] if decomp != "ring"
+                   else diff["max_rel_diff"] <= TOL_ROUTE)
+            del got
+            gc.collect()
+        if base is None:
+            base = line["stages_s"] or {}
+        elif line["stages_s"]:
+            line["interp_data_vs_unsharded"] = (
+                line["stages_s"]["interp_data"] / base["interp_data"])
+        line["ok"] = bool(ok_)
+        emit(line)
+        if not ok_:
+            raise SystemExit(f"main_path_sharded_ranks ({decomp}) failed")
+    os.remove(dump)
 
 
 #: packed_apply's kernel in a trace (names come demangled): ell_apply.cuh's
@@ -1446,7 +1716,7 @@ def main(argv=None) -> int:
     # --- inputs ----------------------------------------------------------
     shutil.rmtree(WORK, ignore_errors=True)
     t0 = time.perf_counter()
-    (nml, nml_streamed), info = prepare_inputs(
+    (nml, nml_streamed, *nml_sharded), info = prepare_inputs(
         WORK, os.path.join(HERE, "parm"), args.ncells, args.seed,
         classic=not has_h5py)
     reduced = ([f"ncells {args.ncells} < {NCELLS}"]
@@ -1611,6 +1881,12 @@ def main(argv=None) -> int:
         del art
     for k in ("MPASSIT_ELL_KERNEL", "MPASSIT_GATHER_KERNEL"):
         os.environ.pop(k, None)
+
+    # --- the main path sharded: a world of one over NCCL --------------------
+    route_launches["sharded"] = sharded_phase(
+        pipeline, nml, nml_sharded, default_art, device, args.seed, reduced,
+        arts, calls, split)
+    ranks_phase(nml, nml_sharded, default_art, torch.cuda.device_count())
 
     # --- the default route again, profiled ---------------------------------
     route_launches["profiled"] = profiled_phase(

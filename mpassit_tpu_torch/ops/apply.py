@@ -79,5 +79,5 @@ class Regridder:
 
     def apply_np(self, src, out_dtype=None, root_only: bool = False):
         """Host apply. ``root_only`` is accepted for the engines' common
-        signature; a single process is always the primary one."""
+        signature: unsharded, every process computes the whole result."""
         return self(src, out_dtype=out_dtype).cpu().numpy()

@@ -33,6 +33,20 @@ budget (``device_budget``), it runs in column groups, each uploaded,
 applied by one kernel launch, fetched and freed in turn
 (``PackedSlabRegridder._grouped_width``); the result is the full-width
 one, bit for bit.
+
+With a ``mesh`` (parallel/sharding.GridMesh; the pipeline's
+``n_device_shards``), both engines run tile-row sharded, the counterpart
+of the ``shard_map`` branches of the JAX package's ``_fused_full``: the
+tile rows are padded to a multiple of the world size (zero tiles), each
+rank keeps ``slab_idx``, ``loc``, ``loc_w``, its one-hot operators and
+the rotation's cosa/sina for its own band of ``nty_l`` tile rows only, and
+launches the route's kernel over that band. The source is replicated. The
+fetch gathers each row chunk from every rank (``_fetch_strips``). The pack
+cache keeps the unbanded pack, so one entry serves every world size. The
+gather route is off under a mesh, as in the JAX package (its
+``_use_gather`` needs ``mesh is None``): ``MPASSIT_GATHER_KERNEL=1`` with
+a mesh runs the default route. The grouped apply runs sharded, the same
+group loop on every rank (the group width agreed as the ranks' least).
 """
 
 from __future__ import annotations
@@ -42,8 +56,10 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from ..parallel.multihost import fetch_to_host
+from ..parallel.multihost import gather_bands
+from ..parallel.sharding import band_rows
 from .gather_kernel import CH, packed_gather_apply
 from .onehot_kernel import onehot_apply, onehot_apply_packed
 from .packed_kernel import _validate_rotate, packed_apply
@@ -389,37 +405,95 @@ def device_budget(device, held=0) -> float:
     return 12e9
 
 
-def _fetch_strips(o, C, ny, nx, lo0, root_only, out, strip_sink):
+def _fetch_strips(o, C, ny, nx, lo0, root_only, out, strip_sink,
+                  mesh=None):
     """Fetch columns [lo0, lo0 + o's width) ∩ [0, C) of a device result to
     the host in CB-column strips: into ``out`` or to ``strip_sink``. A
-    strip crosses in row chunks of at most FETCH_TMP bytes."""
+    strip crosses in row chunks of at most FETCH_TMP bytes per rank.
+
+    Under a ``mesh``, ``o`` is this rank's band of tile rows (grid rows
+    [rank * band, (rank + 1) * band)): every rank takes the same row
+    chunks of its band, each chunk is gathered from every rank
+    (``gather_bands``: to all, or to rank 0 with ``root_only``, where the
+    other ranks neither fill ``out`` nor call the sink) and each rank's
+    rows land at its band's offset."""
+    band = o.shape[0]
+    world = 1 if mesh is None else mesh.world
+    get = not (root_only and mesh is not None and mesh.rank != 0)
+    n_rows = min(band, ny)          # rank 0's grid rows: the most of any
     for lo in range(lo0, min(lo0 + o.shape[2], C), CB):
         cb_eff = min(CB, C - lo, lo0 + o.shape[2] - lo)
-        strip = (out[:, :, lo:lo + cb_eff] if strip_sink is None
-                 else np.empty((ny, nx, cb_eff), np.float32))
+        strip = None
+        if get:
+            strip = (out[:, :, lo:lo + cb_eff] if strip_sink is None
+                     else np.empty((ny, nx, cb_eff), np.float32))
         rows = max(1, FETCH_TMP // (4 * nx * cb_eff))
-        for r in range(0, ny, rows):
-            r1 = min(r + rows, ny)
-            fetch_to_host(o[r:r1, :nx, lo - lo0:lo - lo0 + cb_eff],
-                          root_only=root_only, out=strip[r:r1])
-        if strip_sink is not None:
+        for r in range(0, n_rows, rows):
+            r1 = min(r + rows, n_rows)
+            parts = gather_bands(o[r:r1, :nx, lo - lo0:lo - lo0 + cb_eff],
+                                 mesh, root_only)
+            if strip is None:
+                continue
+            parts = parts.unflatten(0, (world, r1 - r))
+            for k in range(world):
+                g0, g1 = k * band + r, min(k * band + r1, ny)
+                if g0 < g1:
+                    torch.from_numpy(strip[g0:g1]).copy_(parts[k, :g1 - g0])
+        if strip_sink is not None and get:
             strip_sink(lo, strip)
 
 
-class _Operator:
-    """What both regridders share: the route, the lazily built device
-    operands of each route (ELL arrays, one-hot operators, the gather
-    layout) and the source upload."""
+def _host_result(shape, root_only, mesh, strip_sink):
+    """The host array an apply fills (``_fetch_strips``' ``out``): none
+    with a strip sink; a zero broadcast view on a rank that gets nothing
+    (root_only, not rank 0 of a mesh), as the JAX package returns."""
+    if strip_sink is not None:
+        return None
+    if root_only and mesh is not None and mesh.rank != 0:
+        return np.broadcast_to(np.float32(0.0), shape)
+    return np.empty(shape, np.float32)
 
-    def __init__(self, device, precision, cache_dir, fps, Ks, slab_idx,
-                 loc, loc_w):
+
+def _fetch_bytes(mesh) -> int:
+    """Device bytes one row chunk of the fetch holds: the contiguous copy
+    of the chunk, and under a process group the gathered chunks of every
+    rank too (gather_bands)."""
+    if mesh is None or mesh.group is None:
+        return FETCH_TMP
+    return (1 + mesh.world) * FETCH_TMP
+
+
+class _Operator:
+    """What both regridders share: the route, the pack (banded under a
+    mesh), the lazily built device operands of each route (ELL arrays,
+    one-hot operators, the gather layout) and the source upload.
+
+    ``nty``/``ntx`` are the grid's tile rows and columns; ``nty_l`` the
+    tile rows this rank launches over (``nty`` without a mesh), ``nty_p``
+    the padded total (``nty_l`` times the world size), ``n_tiles`` this
+    rank's tiles (``nty_l * ntx``)."""
+
+    def __init__(self, device, precision, cache_dir, fps, Ks, pack,
+                 mesh=None):
         if precision not in PRECISIONS:
             raise ValueError(f"precision must be one of {PRECISIONS}")
         self.precision = precision
         self.device = torch.device(device)
         self.cache_dir = cache_dir
-        #: "ell" (default), "onehot" or "gather", see _route_from_env
+        self.mesh = mesh
+        #: "ell" (default), "onehot" or "gather", see _route_from_env; no
+        #: gather route under a mesh
         self.route = _route_from_env()
+        if mesh is not None and self.route == "gather":
+            self.route = "ell"
+        slab_idx, loc, loc_w, self.W, self.nty, self.ntx, _ = pack
+        self.nty_l = self.nty if mesh is None else -(-self.nty // mesh.world)
+        self.nty_p = self.nty_l * (1 if mesh is None else mesh.world)
+        self.n_tiles = self.nty_l * self.ntx
+        if mesh is not None:
+            slab_idx, loc, loc_w = (band_rows(np.asarray(a), mesh,
+                                              self.n_tiles)
+                                    for a in (slab_idx, loc, loc_w))
         self._fps, self._Ks = fps, list(Ks)
         self._slab_idx_host = slab_idx
         self._loc_host, self._w_host = loc, loc_w
@@ -489,13 +563,15 @@ class SlabMatmulRegridder(_Operator):
     kernel of the route (see the module docstring).
 
     Raises ValueError when a tile references more than W_CAP unique source
-    rows (the caller falls back to ops.apply.Regridder)."""
+    rows (the caller falls back to ops.apply.Regridder). With a ``mesh``
+    each rank applies its band of tile rows (see the module docstring).
+    """
 
     #: apply_np accepts a list of column blocks (device-side assembly)
     accepts_blocks = True
 
     def __init__(self, ell, device, precision: str = "highest",
-                 cache_dir=None):
+                 cache_dir=None, mesh=None):
         if len(ell.dst_shape) != 2:
             raise ValueError("SlabMatmulRegridder needs a 2-D dst_shape")
         ny, nx = ell.dst_shape
@@ -503,13 +579,11 @@ class SlabMatmulRegridder(_Operator):
         self.n_src = ell.n_src
         self.dst_shape = (ny, nx)
         fps = (ell.fingerprint(),) if cache_dir else None
-        (slab_idx, loc, loc_w, self.W, self.nty, self.ntx,
-         self.n_tiles) = _pack_union_cached(
+        pack = _pack_union_cached(
             lambda: (np.asarray(ell.idx, dtype=np.int64),
                      np.asarray(ell.w, dtype=np.float64)),
             ny, nx, self.n_src, cache_dir=cache_dir, ell_fps=fps)
-        super().__init__(device, precision, cache_dir, fps, (K,), slab_idx,
-                         loc, loc_w)
+        super().__init__(device, precision, cache_dir, fps, (K,), pack, mesh)
         self.duplication = self.n_tiles * self.W / max(ell.n_src, 1)
 
     @property
@@ -521,11 +595,11 @@ class SlabMatmulRegridder(_Operator):
     def _apply(self, slab):
         """(n_tiles, W, Cp) slab -> (nyp, nxp, Cp), default or one-hot."""
         if self.route == "onehot":
-            return onehot_apply(self.A, slab, nty=self.nty, ntx=self.ntx,
+            return onehot_apply(self.A, slab, nty=self.nty_l, ntx=self.ntx,
                                 precision=self.precision)
         locs, ws = self._ell_dev()
         return packed_apply(slab, locs, ws, ranges=((0, slab.shape[2]),),
-                            nty=self.nty, ntx=self.ntx)
+                            nty=self.nty_l, ntx=self.ntx)
 
     def _gather_apply(self, src_dev):
         """(n_src + CH, Cp) source -> (nyp, nxp, Cp), slab rows gathered
@@ -533,12 +607,13 @@ class SlabMatmulRegridder(_Operator):
         ch, locs, ws = self._gather_dev()
         Cp = src_dev.shape[1]
         return packed_gather_apply(src_dev, ch, locs, ws, W8=self.W8,
-                                   ranges=((0, Cp),), nty=self.nty,
+                                   ranges=((0, Cp),), nty=self.nty_l,
                                    ntx=self.ntx)
 
     def __call__(self, src_dev):
         """src (n_src, C) tensor on the operator's device. Returns the
-        (nyp, nxp, C) device result (tile-padded grid)."""
+        (nyp, nxp, C) device result (tile-padded grid); under a mesh this
+        rank's band of it, (nty_l * 32, nxp, C)."""
         if src_dev.dim() == 1:
             src_dev = src_dev[:, None]
         C = src_dev.shape[1]
@@ -569,19 +644,20 @@ class SlabMatmulRegridder(_Operator):
         C = sum(ncols(b) for b in src) if is_blocks else ncols(src)
         Cp = C + ((-C) % LANE)
         ny, nx = self.dst_shape
-        out = None if strip_sink is not None else np.empty((ny, nx, C),
-                                                           np.float32)
+        out = _host_result((ny, nx, C), root_only, self.mesh, strip_sink)
         src_dev = self._upload(src, Cp)
         if self.route == "gather" and Cp <= FETCH:
             o = self._gather_apply(src_dev)
-            _fetch_strips(o, C, ny, nx, 0, root_only, out, strip_sink)
+            _fetch_strips(o, C, ny, nx, 0, root_only, out, strip_sink,
+                          self.mesh)
         else:
             slab = self._slab(src_dev)
             del src_dev
             for g in range(0, Cp, FETCH):
                 gw = min(FETCH, Cp - g)
                 o = self._apply(slab[:, :, g:g + gw].contiguous())
-                _fetch_strips(o, C, ny, nx, g, root_only, out, strip_sink)
+                _fetch_strips(o, C, ny, nx, g, root_only, out, strip_sink,
+                              self.mesh)
                 del o
         if strip_sink is not None:
             return None
@@ -604,14 +680,15 @@ class PackedSlabRegridder(_Operator):
     is applied to those columns inside the kernel, on every route. A
     window that does not fit one 256-column sub-chunk raises ValueError,
     as in the JAX package, so that both packages take the same rotation
-    route.
+    route. With a ``mesh`` each rank applies its band of tile rows (see the
+    module docstring).
     """
 
     #: apply_np accepts a list of column blocks (device-side assembly)
     accepts_blocks = True
 
     def __init__(self, ells_and_cols, device, precision: str = "highest",
-                 rotate_spec=None, cache_dir=None):
+                 rotate_spec=None, cache_dir=None, mesh=None):
         ells = [e for e, _ in ells_and_cols]
         self.col_counts = [int(c) for _, c in ells_and_cols]
         if len({e.n_src for e in ells}) != 1:
@@ -643,27 +720,26 @@ class PackedSlabRegridder(_Operator):
                         [np.asarray(e.w, np.float64) for e in ells], axis=1))
 
         fps = tuple(e.fingerprint() for e in ells) if cache_dir else None
-        (slab_idx, loc, loc_w, self.W, self.nty, self.ntx,
-         self.n_tiles) = _pack_union_cached(
+        pack = _pack_union_cached(
             _cat, ny, nx, self.n_src, cache_dir=cache_dir, ell_fps=fps)
         super().__init__(device, precision, cache_dir, fps,
-                         [e.idx.shape[1] for e in ells], slab_idx, loc,
-                         loc_w)
+                         [e.idx.shape[1] for e in ells], pack, mesh)
 
         # in-kernel wind rotation (quirk Q4): cosa/sina tile-blocked
         # (n_tiles, TY, TX) and padded with the IDENTITY rotation (cosa=1,
         # sina=0) outside the data region — zero padding would put 0/0
-        # NaNs in the padded rows
+        # NaNs in the padded rows; this rank's band of tile rows
         self.rotate = ()
         self._cosa_t = self._sina_t = None
         if rotate_spec is not None:
             windows, cosa, sina = rotate_spec
-            cs = np.zeros((self.nty * TY, self.ntx * TX, 2), np.float32)
+            cs = np.zeros((self.nty_p * TY, self.ntx * TX, 2), np.float32)
             cs[:, :, 0] = 1.0
             cs[:ny, :nx, 0] = np.asarray(cosa, np.float32).reshape(ny, nx)
             cs[:ny, :nx, 1] = np.asarray(sina, np.float32).reshape(ny, nx)
-            cs_t = _tile_block(cs, self.nty, self.ntx, 2).reshape(
-                self.n_tiles, TY, TX, 2)
+            t0 = (0 if mesh is None else mesh.rank) * self.n_tiles
+            cs_t = _tile_block(cs, self.nty_p, self.ntx, 2).reshape(
+                self.nty_p * self.ntx, TY, TX, 2)[t0:t0 + self.n_tiles]
             self.rotate = tuple(tuple(w) for w in windows)
             self._cosa_t = torch.from_numpy(
                 np.ascontiguousarray(cs_t[..., 0])).to(self.device)
@@ -681,7 +757,7 @@ class PackedSlabRegridder(_Operator):
         relative to g; the rotation windows ride the window at g = 0.
         Columns past C_total are zeroed by the kernel."""
         ranges, ms = group_ranges(self.ranges, g, src_dev.shape[1])
-        kw = dict(ranges=ranges, nty=self.nty, ntx=self.ntx)
+        kw = dict(ranges=ranges, nty=self.nty_l, ntx=self.ntx)
         if g == 0:
             kw.update(rotate=self.rotate, cosa=self._cosa_t,
                       sina=self._sina_t)
@@ -699,7 +775,8 @@ class PackedSlabRegridder(_Operator):
 
     def __call__(self, src_dev):
         """src (n_src, C_total) tensor on the operator's device, columns
-        laid out per ``ells_and_cols``. Returns (nyp, nxp, C_total)."""
+        laid out per ``ells_and_cols``. Returns (nyp, nxp, C_total); under
+        a mesh this rank's band of it, (nty_l * 32, nxp, C_total)."""
         if src_dev.shape[1] != self.C_total:
             raise ValueError(
                 f"packed source has {src_dev.shape[1]} columns, operator "
@@ -728,25 +805,36 @@ class PackedSlabRegridder(_Operator):
         rule, with what it leaves out counted: a column costs its source,
         slab and output columns, all live during its group's launch; beside
         them the device holds the operands (``_held_bytes``) and one fetch
-        chunk (FETCH_TMP). The halving keeps two groups' worth of columns
+        chunk (``_fetch_bytes``: under a process group the gathered chunks
+        of every rank too). The halving keeps two groups' worth of columns
         inside the rest, as in the JAX package. Group 0 keeps the rotation
         windows and at least CB columns, and the width is rounded up to a
         multiple of LANE, which the kernels' column blocks need: only these
-        floors may take a group past the budget."""
+        floors may take a group past the budget. Under a mesh a rank counts
+        its band's slab and output, and every rank takes the least width
+        any rank computed (their devices' free bytes may differ), so all
+        run the same groups."""
         if self.Cp <= FETCH:
             return 0
         per_col = 4 * (self.n_src + self.n_tiles * self.W
-                       + self.nty * TY * self.ntx * TX)
+                       + self.nty_l * TY * self.ntx * TX)
         held = self._held_bytes()
-        room = device_budget(self.device, held) - held - FETCH_TMP
-        if self.Cp * per_col <= room:
-            return 0
-        gw = FETCH
-        while gw > LANE and 2 * gw * per_col > room:
-            gw //= 2
-        if self.rotate:
-            gw = max(gw, CB, max(cv + n for (_, cv, n) in self.rotate))
-        return -(-gw // LANE) * LANE
+        room = device_budget(self.device, held) - held - _fetch_bytes(
+            self.mesh)
+        gw = 0
+        if self.Cp * per_col > room:
+            gw = FETCH
+            while gw > LANE and 2 * gw * per_col > room:
+                gw //= 2
+            if self.rotate:
+                gw = max(gw, CB, max(cv + n for (_, cv, n) in self.rotate))
+            gw = -(-gw // LANE) * LANE
+        if self.mesh is not None and self.mesh.group is not None:
+            least = torch.tensor([gw or self.Cp], device=self.device)
+            dist.all_reduce(least, op=dist.ReduceOp.MIN,
+                            group=self.mesh.group)
+            gw = int(least) if int(least) < self.Cp else 0
+        return gw
 
     def apply_np(self, src, root_only: bool = False, strip_sink=None):
         """Host apply in column groups of ``_grouped_width`` columns when
@@ -761,13 +849,13 @@ class PackedSlabRegridder(_Operator):
         gw = (self.Cp if self.route == "gather"
               else self._grouped_width() or self.Cp)
         ny, nx = self.dst_shape
-        out = None if strip_sink is not None else np.empty(
-            (ny, nx, self.C_total), np.float32)
+        out = _host_result((ny, nx, self.C_total), root_only, self.mesh,
+                           strip_sink)
         for g in range(0, self.Cp, gw):
             src_dev = self._upload(src, min(gw, self.Cp - g), g)
             o = self._apply_padded(src_dev, g)
             del src_dev
             _fetch_strips(o, self.C_total, ny, nx, g, root_only, out,
-                          strip_sink)
+                          strip_sink, self.mesh)
             del o
         return out

@@ -21,6 +21,14 @@ apply route that ``MPASSIT_ELL_KERNEL``/``MPASSIT_GATHER_KERNEL`` pick
 activity, and the device's on a CUDA device, each ``Timings`` stage a
 ``record_function`` span; the Chrome trace lands in ``<dir>`` as
 ``trace_<pid>.json`` (``tools/trace_summary.py`` reads it).
+
+Multi-process runs (parallel/multihost.py): ``main`` resolves the device
+first (``cuda:LOCAL_RANK``, or the CPU), then starts the process group
+over NCCL or gloo from the ``MPASSIT_*`` variables or a torchrun launch.
+``n_device_shards = -1`` (or the world size) shards every apply over the
+ranks (``_device_mesh``, ``_make_regridder``); every rank runs the same
+program, rank 0 writes the file, and a streamed run's other ranks drop
+their strips into a ``NullStreamWriter``.
 """
 
 from __future__ import annotations
@@ -43,7 +51,12 @@ from ..io.mpas_reader import (
     read_diag_data,
     read_hist_data,
 )
-from ..io.wrf_writer import RegridResult, StreamingWriter, write_output
+from ..io.wrf_writer import (
+    NullStreamWriter,
+    RegridResult,
+    StreamingWriter,
+    write_output,
+)
 from ..mesh.mpas import MPASMesh, mesh_from_file
 from ..weights.bilinear import (
     bilinear_cell_weights,
@@ -58,6 +71,17 @@ from ..weights.restagger import edge1_weights, edge2_weights
 from ..ops.apply import Regridder
 from ..ops.matmul_apply import PackedSlabRegridder, SlabMatmulRegridder
 from ..ops.rotate import check_rotation_angles, rotate_winds
+from ..parallel.multihost import (
+    is_primary,
+    local_device_index,
+    maybe_init_distributed,
+    shutdown_distributed,
+)
+from ..parallel.sharding import (
+    ShardedRegridder,
+    SourceShardedRegridder,
+    make_grid_mesh,
+)
 
 log = logging.getLogger("mpassit_tpu_torch")
 
@@ -295,7 +319,8 @@ def _run_batches_packed(batches, rgs, weights, root_only, device,
         try:
             pk = PackedSlabRegridder(
                 ells_and_cols, device, precision=ref_rg.precision,
-                rotate_spec=rotate_spec, cache_dir=ref_rg.cache_dir)
+                rotate_spec=rotate_spec, cache_dir=ref_rg.cache_dir,
+                mesh=ref_rg.mesh)
         except ValueError:
             pk = None          # window exceeds the 256-column chunk: rotate
             rotate_spec = None  # post-hoc instead
@@ -303,7 +328,7 @@ def _run_batches_packed(batches, rgs, weights, root_only, device,
         try:
             pk = PackedSlabRegridder(
                 ells_and_cols, device, precision=ref_rg.precision,
-                cache_dir=ref_rg.cache_dir)
+                cache_dir=ref_rg.cache_dir, mesh=ref_rg.mesh)
         except ValueError:
             return False             # e.g. union exceeds the W cap
     # list of per-part column blocks, assembled on the device
@@ -373,18 +398,53 @@ def _stack_apply(rg, data: InputData, specs, ndim: int, dtype=np.float32,
     return res
 
 
-def _make_regridder(ell: ELLWeights, dtype, device, precision="highest",
+def _make_regridder(ell: ELLWeights, dtype, device, mesh=None,
+                    precision="highest", source_decomp="replicate",
                     cache_dir=None):
     """Pick the apply engine: the tile-packed kernel engine for f32 2-D
     grids, falling back to the plain gather Regridder for f64 runs, 1-D
-    targets, or tiles over W_CAP."""
+    targets, or tiles over W_CAP. With ``mesh`` (n_device_shards), the
+    operator's target rows are sharded over the ranks; with source_decomp
+    "ring"/"allgather" the SOURCE is sharded too and the halo exchanged
+    between ranks (the reference's route-handle communication,
+    interp.F90:123-134). Without a mesh source_decomp changes nothing, as
+    in the JAX package."""
+    if mesh is not None and source_decomp != "replicate":
+        return SourceShardedRegridder(ell, mesh, dtype=dtype,
+                                      comm=source_decomp)
     if dtype == torch.float32 and len(ell.dst_shape) == 2:
         try:
             return SlabMatmulRegridder(ell, device, precision=precision,
-                                       cache_dir=cache_dir)
+                                       cache_dir=cache_dir, mesh=mesh)
         except ValueError:
             pass
+    if mesh is not None:
+        return ShardedRegridder(ell, mesh, dtype=dtype)
     return Regridder(ell, device, dtype=dtype)
+
+
+def _device_mesh(cfg: Config, device):
+    """The grid mesh for n_device_shards, or None (0 or 1: no mesh). A
+    shard is a rank, one device each: -1 is every rank of the process
+    group (a mesh of one without one). More shards than ranks is the JAX
+    package's error; fewer than the ranks (but more than one) is refused,
+    where the JAX package takes its first n devices."""
+    n = cfg.n_device_shards
+    if n in (0, 1):
+        return None
+    world = (torch.distributed.get_world_size()
+             if torch.distributed.is_initialized() else 1)
+    if n == -1:
+        n = world
+    if n > world:
+        raise ValueError(
+            f"n_device_shards={n} but only {world} devices present")
+    if n < world:
+        raise FatalError(
+            f"N_DEVICE_SHARDS={n} WITH {world} PROCESSES: THE PORT COUNTS "
+            "ONE DEVICE PER RANK AND NEEDS N_DEVICE_SHARDS = -1 OR THE "
+            "WORLD SIZE")
+    return make_grid_mesh(device)
 
 
 @dataclasses.dataclass
@@ -431,26 +491,10 @@ def build_weights(cfg: Config, mesh: MPASMesh, grid: TargetGrid,
     return out
 
 
-def _check_ported(cfg: Config) -> None:
-    """Options of the JAX package that this package does not run yet:
-    raise rather than silently ignore them."""
-    todo = []
-    if cfg.n_device_shards not in (0, 1):
-        todo.append(f"n_device_shards={cfg.n_device_shards} "
-                    "(ROADMAP.md queue 1, item 8)")
-    if cfg.source_decomp != "replicate":
-        todo.append(f"source_decomp={cfg.source_decomp!r} "
-                    "(ROADMAP.md queue 1, item 8)")
-    if todo:
-        raise NotImplementedError(
-            "not ported to mpassit_tpu_torch yet: " + "; ".join(todo))
-
-
 def run_pipeline(cfg: Config, device, dtype=None) -> PipelineArtifacts:
     """Run the whole regrid on ``device`` (a torch.device or its name).
     ``dtype`` defaults to the namelist's compute_dtype. With
     MPASSIT_PROFILE set, the run is recorded into a trace there."""
-    _check_ported(cfg)
     device = torch.device(device)
     if dtype is None:
         dtype = (torch.float64 if cfg.compute_dtype == "float64"
@@ -560,8 +604,10 @@ def _run_pipeline(cfg: Config, device, dtype) -> PipelineArtifacts:
 
     with timer("weight_generation"):
         weights = build_weights(cfg, mesh, grid, routing)
-        rgs = {k: _make_regridder(v, dtype, device,
+        dev_mesh = _device_mesh(cfg, device)
+        rgs = {k: _make_regridder(v, dtype, device, mesh=dev_mesh,
                                   precision=cfg.apply_precision,
+                                  source_decomp=cfg.source_decomp,
                                   cache_dir=cfg.weights_cache_dir)
                for k, v in weights.items()}
 
@@ -578,15 +624,25 @@ def _run_pipeline(cfg: Config, device, dtype) -> PipelineArtifacts:
         root_only = cfg.fetch_root_only
 
         # stream_output: the whole output schema is created now, then
-        # every apply below writes its fetched strips into the file
+        # every apply below writes its fetched strips into the file. Rank 0
+        # holds the file (the rank-0 serial write, write_data.F90:1005-1475);
+        # every other rank runs the same program with a NullStreamWriter:
+        # it joins each strip's fetch collective and drops the strip, so no
+        # rank materializes the whole output
         writer = None
         deferred: dict = {}
         if cfg.stream_output:
             plan = _build_stream_plan(cfg, routing, data)
-            with timer("write_to_file"):
-                writer = StreamingWriter(
-                    cfg.output_file, cfg, grid, data, plan, mesh.nz,
-                    mesh.nzp1, mesh.nsoil, mesh.zs).open()
+            if is_primary():
+                with timer("write_to_file"):
+                    writer = StreamingWriter(
+                        cfg.output_file, cfg, grid, data, plan, mesh.nz,
+                        mesh.nzp1, mesh.nsoil, mesh.zs).open()
+            else:
+                writer = NullStreamWriter()
+                log.info("- streaming: process %d participates in strip "
+                         "fetches and drops them (no full-output buffer)",
+                         torch.distributed.get_rank())
 
         def batch_for(key: str) -> _ApplyBatch:
             if key not in batches:
@@ -594,7 +650,8 @@ def _run_pipeline(cfg: Config, device, dtype) -> PipelineArtifacts:
                                            root_only=root_only)
             return batches[key]
 
-        # wind mass fields feed the restagger: always fetched in full
+        # wind mass fields feed the restagger, sharded too: always
+        # gathered to every rank
         wind_batch = _ApplyBatch(rgs["bilinear"], np_dtype, root_only=False)
         # degeneracy guard (register R11): warn before any Q4 rotation if
         # the grid's rotation angles approach 90 deg (|cosa| -> 0)
@@ -691,7 +748,12 @@ def _run_pipeline(cfg: Config, device, dtype) -> PipelineArtifacts:
         if cfg.interp_diag:
             # 10-m wind rotation (interp.F90:138-140, wind_dim=2)
             names2 = [s.in_name for s in d2]
-            if "u10" in names2 and "v10" in names2 and cfg.proj_code == PROJ_LC:
+            # streamed, the rotation feeds only the file: rank 0 alone (it
+            # has no collective; under fetch_root_only the other ranks'
+            # deferred buffers were never filled)
+            if ("u10" in names2 and "v10" in names2
+                    and cfg.proj_code == PROJ_LC
+                    and (writer is None or is_primary())):
                 iu, iv = names2.index("u10"), names2.index("v10")
                 uo, vo = d2[iu].out_name, d2[iv].out_name
                 # streamed: the deferred (ny, nx, 1) buffers
@@ -755,9 +817,9 @@ def _run_pipeline(cfg: Config, device, dtype) -> PipelineArtifacts:
     # test hook: dump the full-precision regrid results before the f32
     # NetCDF write (the file caps agreement at f32 rounding); a streamed
     # run dumps what it held (the mass winds' restagger outputs are not
-    # among them)
+    # among them) on every rank, an in-memory one on rank 0
     dump = os.environ.get("MPASSIT_DUMP_RESULT")
-    if dump:
+    if dump and (writer is not None or is_primary()):
         arrs = {}
         for cat in ("diag2d", "diag3d", "patch2d", "nz3d", "nzp13d",
                     "vert3d", "cons2d", "nstd2d", "soil"):
@@ -768,7 +830,7 @@ def _run_pipeline(cfg: Config, device, dtype) -> PipelineArtifacts:
                 arrs[name] = getattr(res, name)
         np.savez(dump, **arrs)
 
-    if writer is None:
+    if writer is None and is_primary():
         with timer("write_to_file"):
             write_output(cfg.output_file, cfg, grid, data, res)
 
@@ -779,7 +841,8 @@ def _run_pipeline(cfg: Config, device, dtype) -> PipelineArtifacts:
 
 def resolve_device(platform: str) -> torch.device:
     """MPASSIT_PLATFORM value -> torch.device. ``cuda`` requires a CUDA
-    device and never falls back to the CPU."""
+    device and never falls back to the CPU; on a multi-process launch it
+    is the process's own device (``cuda:LOCAL_RANK``)."""
     if platform == "cpu":
         return torch.device("cpu")
     if platform == "cuda":
@@ -787,7 +850,7 @@ def resolve_device(platform: str) -> torch.device:
             raise FatalError(
                 "MPASSIT_PLATFORM=cuda BUT NO CUDA DEVICE IS AVAILABLE "
                 "(set MPASSIT_PLATFORM=cpu to run on the CPU)")
-        return torch.device("cuda", torch.cuda.current_device())
+        return torch.device("cuda", local_device_index())
     raise FatalError(
         f"MPASSIT_PLATFORM={platform!r}: EXPECTED 'cuda' OR 'cpu'")
 
@@ -795,12 +858,12 @@ def resolve_device(platform: str) -> torch.device:
 def main(argv=None) -> int:
     import sys
 
-    from ..parallel.multihost import maybe_init_distributed
-
     argv = sys.argv[1:] if argv is None else argv
     nml = argv[0] if argv else "./fort.41"  # mpassit.F90:52-65 default
-    maybe_init_distributed()
+    # a process group this call starts is destroyed when it returns
+    owned = not torch.distributed.is_initialized()
     try:
+        # the device first: the backend follows it (NCCL or gloo)
         device = resolve_device(os.environ.get("MPASSIT_PLATFORM", "cuda"))
         # mpassit.F90:55-65: abort when the namelist path does not exist
         if not os.path.exists(nml):
@@ -811,11 +874,15 @@ def main(argv=None) -> int:
         logging.basicConfig(
             level=logging.DEBUG if cfg.esmf_log else logging.INFO,
             format="%(message)s")
+        maybe_init_distributed(device)
         run_pipeline(cfg, device)
     except FatalError as e:
         # error_handler/netcdf_err banner + abort (utils.F90:16-58); exit
         # code 999 truncates to 231 like mpi_abort's shell status
         print(e.banner(), file=sys.stderr)
         return 999 & 0xFF
+    finally:
+        if owned:
+            shutdown_distributed()
     log.info("- DONE.")
     return 0

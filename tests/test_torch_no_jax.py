@@ -4,8 +4,9 @@ kernel modules and the kernel-variants tool) runs a tiny pipeline on the
 CPU on each apply route (default, MPASSIT_ELL_KERNEL=0,
 MPASSIT_GATHER_KERNEL=1) and the tool's problem build and variant run, and
 finds neither ``jax`` nor any ``mpassit_tpu`` module in sys.modules, nor the
-JAX package's ``bench`` or ``tools`` (the production tool and the trace
-reader imported too); and no source file of the port, nor chip_smoke.py,
+JAX package's ``bench`` or ``tools`` (the production tool, the trace
+reader and the multi-rank dry run imported too, and the pipeline run once
+more sharded on a mesh of one, replicated and ring); and no source file of the port, nor chip_smoke.py,
 names jax, mpassit_tpu, bench or tools in an absolute import."""
 
 import ast
@@ -26,7 +27,8 @@ from mpassit_tpu_torch.run.pipeline import run_pipeline
 from mpassit_tpu_torch.ops import gather_kernel, onehot_kernel
 from mpassit_tpu_torch.ops import variant_kernels, write_wall
 from mpassit_tpu_torch.tools import bench_production, kernel_variants
-from mpassit_tpu_torch.tools import trace_summary
+from mpassit_tpu_torch.tools import dryrun_multichip, trace_summary
+from mpassit_tpu_torch.parallel import sharding
 from mpassit_tpu_torch.config import Config
 from mpassit_tpu_torch.mesh.synthetic import synthetic_voronoi_mesh
 from mpassit_tpu_torch.testing import (
@@ -76,6 +78,11 @@ for env in ({}, {"MPASSIT_ELL_KERNEL": "0"}, {"MPASSIT_GATHER_KERNEL": "1"}):
     counts.append((sum(onehot_kernel.PLAIN_CALLS.values()),
                    gather_kernel.PLAIN_CALLS))
 assert counts[0] == (0, 0) and counts[1][0] > 0 and counts[2][1] > 0, counts
+os.environ.pop("MPASSIT_GATHER_KERNEL", None)
+for decomp in ("replicate", "ring"):
+    cfg.n_device_shards, cfg.source_decomp = -1, decomp
+    art = run_pipeline(cfg, device="cpu")
+    assert np.isfinite(art.result.u).all()
 ell, _ = kernel_variants.build_problem(2000, 41, 25, os.path.join(d, "kv"))
 assert kernel_variants.run_variants(ell, "cpu", cols=128)["ok"]
 bound = [m for m in sys.modules

@@ -5,7 +5,8 @@ attributes, the one-hot and in-kernel-gather routes under their switches
 (one-hot: 1e-6 * max(1, max|ref|), since JAX's CPU path forms the same
 bf16 terms; gather: bit for bit the port's default route), the classic-format (CDF-2) input path chip_smoke.py uses on
 machines without h5py, the CLI's exit codes and device rule, and the
-options that are not ported yet."""
+sharding options on one process (n_device_shards, source_decomp) and a
+one-rank process group."""
 
 import dataclasses
 import os
@@ -272,28 +273,75 @@ def test_strip_router_streams_like_in_memory(f32_runs):
 
 
 @pytest.mark.parametrize("override,env", [
+    # a mesh of one: bit for bit the unsharded run
     ({"n_device_shards": -1}, None),
+    # more shards than ranks: the JAX package's error
     ({"n_device_shards": 2}, None),
-    ({"source_decomp": "ring", "n_device_shards": 2}, None),
-    # MPASSIT_PROFILE runs since item 9 (tests/test_torch_profile.py);
-    # source_decomp alone still raises
+    # the ring engine on a mesh of one, against the JAX package's ring
+    ({"source_decomp": "ring", "n_device_shards": -1}, None),
+    # no mesh: source_decomp changes nothing, as in the JAX package
     ({"source_decomp": "allgather"}, None),
 ])
-def test_unported_options_raise(tmp_path, monkeypatch, override, env):
+def test_unported_options_raise(tmp_path, monkeypatch, override, env,
+                                f32_runs):
+    """The sharding options run and match the JAX package: each case holds
+    the port to the JAX package on the same namelist, where it runs it,
+    or to the JAX package's error. (The name is kept from when the port
+    refused these options, so that the test's record stays one.)"""
+    from mpassit_tpu_torch.parallel.sharding import SourceShardedRegridder
+
+    *_, default, _, _ = f32_runs
     mesh, cfg, _, _ = make_case(tmp_path, cfg_overrides=override)
     if env:
         monkeypatch.setenv(*env)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tpipe.run_pipeline(_port(cfg), device="cpu")
+    if cfg.n_device_shards == 2:
+        with pytest.raises(ValueError, match="only 1 devices present"):
+            tpipe.run_pipeline(_port(cfg), device="cpu")
+        return
+    ref = jax_run(cfg, jnp.float32)
+    cfg.output_file = str(tmp_path / "out_torch.nc")
+    got = tpipe.run_pipeline(_port(cfg), device="cpu")
+    _assert_results_close(got.result, ref.result)
+    ring = cfg.source_decomp == "ring"
+    assert all(isinstance(r, SourceShardedRegridder) == ring
+               for r in got.regridders.values())
+    if not ring:
+        a, b = _arrays(got.result), _arrays(default.result)
+        for k in b:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
 def test_multiprocess_env_raises(monkeypatch):
-    from mpassit_tpu_torch.parallel import multihost
+    """The multi-process variables start a process group: one rank over
+    gloo for a CPU device, whose mesh spans it; a second call changes
+    nothing; shutdown ends it. (The name is kept from when the port
+    refused a multi-process launch, so that the test's record stays
+    one.)"""
+    import socket
 
-    assert multihost.maybe_init_distributed() is False
-    monkeypatch.setenv("MPASSIT_NUM_PROCESSES", "2")
-    with pytest.raises(NotImplementedError, match="multi-process"):
-        multihost.maybe_init_distributed()
+    import torch.distributed as dist
+
+    from mpassit_tpu_torch.parallel import multihost
+    from mpassit_tpu_torch.parallel.sharding import make_grid_mesh
+
+    assert multihost.maybe_init_distributed("cpu") is False
+    assert not dist.is_initialized()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    monkeypatch.setenv("MPASSIT_COORDINATOR", f"localhost:{port}")
+    monkeypatch.setenv("MPASSIT_NUM_PROCESSES", "1")
+    monkeypatch.setenv("MPASSIT_PROCESS_ID", "0")
+    try:
+        assert multihost.maybe_init_distributed("cpu") is True
+        assert dist.get_backend() == "gloo" and dist.get_world_size() == 1
+        assert multihost.maybe_init_distributed("cpu") is True
+        assert multihost.is_primary()
+        m = make_grid_mesh("cpu")
+        assert (m.rank, m.world) == (0, 1) and m.group is not None
+    finally:
+        multihost.shutdown_distributed()
+    assert not dist.is_initialized()
 
 
 def _write_namelist(cfg, path):

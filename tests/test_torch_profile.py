@@ -88,9 +88,18 @@ def test_profiled_output_within_the_jax_bound(runs):
 
 
 def test_check_ported_passes_profile(tmp_path, monkeypatch):
-    _, cfg, _, _ = make_case(tmp_path)
+    """A profiled run of a sharded namelist (n_device_shards = -1, a mesh
+    of one) writes its trace, with the sharded apply's stages in it. (The
+    name is kept from when an option check stood before a profiled run,
+    so that the test's record stays one.)"""
+    _, cfg, _, _ = make_case(tmp_path,
+                             cfg_overrides={"n_device_shards": -1})
     monkeypatch.setenv("MPASSIT_PROFILE", str(tmp_path / "p"))
-    tpipe._check_ported(_port(cfg))
+    art = tpipe.run_pipeline(_port(cfg), device="cpu")
+    assert art.regridders["bilinear"].mesh is not None
+    events = ts.load_events(str(tmp_path / "p" / f"trace_{os.getpid()}.json"))
+    names = {e.get("name") for e in events}
+    assert {"interp_data", "weight_generation"} <= names
 
 
 def test_streamed_profiled_run_spans(tmp_path, monkeypatch):
