@@ -42,6 +42,22 @@ one JSON line:
   variable's largest sampled magnitude; the gather route's result must
   equal the default route's bit for bit, the one-hot route's within 1e-6
   of each variable's largest magnitude;
+- main_path_written: the normal entry point, ``python -m
+  mpassit_tpu_torch`` on the shipped namelist, as a child process on the
+  card (weights cache warm, write_output not patched: the in-process runs
+  above and below keep their result in memory and write no file, to keep
+  the run's time). Its NetCDF4 file is written by the port's own HDF5
+  encoder (io/hdf5.py; no h5py on the card) and read back through
+  ``open_dataset`` (the port's HDF5 reader where h5py is missing); every
+  variable, level by level, must be bit for bit what the in-memory writer
+  stores from main_path's result (tools/bench_production.py's digest
+  stand-in). It prints the child's exit code and Timings stages
+  (``write_to_file``), the file's bytes, the read-back seconds, the
+  variables that match and differ, nvidia-smi's name and power limit, the
+  seconds of the reference digest (the in-memory writer's code on the
+  stand-in, in this process) and of the whole phase.
+  With less than twice the file's bytes free it runs at a smaller target
+  grid of the same extent, listed in ``reduced``;
 - main_path_sharded: the CLI on the default route once more, unsharded
   (caches warm: this phase's yardstick), then with n_device_shards = -1
   as a world of one process over NCCL (MPASSIT_COORDINATOR,
@@ -54,8 +70,8 @@ one JSON line:
   split with the band gather (``band_gather_s``), peak device memory and
   the unsharded run's; then main_path_sharded_ranks: with two cards or
   more, the CLI as one process per card over NCCL on the replicate and
-  ring namelists beside one unsharded process (the file write left out:
-  no NetCDF4 writer on the card; rank 0 dumps its results through
+  ring namelists beside one unsharded process (the file write left out
+  to keep the run's time; rank 0 dumps its results through
   MPASSIT_DUMP_RESULT): replicate bit for bit the default route, ring
   within 1e-6 of each variable's largest magnitude of it, with rank 0's
   stages and every rank's wall and peak device memory; with one card a
@@ -75,8 +91,8 @@ one JSON line:
   of parm/ whose histlist_3d adds the vertex field ``vorticity VORT``
   (seeded in the same history file), MPASSIT_DEVICE_BUDGET_GB=4 on the
   default route, so the packed apply runs in column groups. A
-  StripRecorder stands in for the NetCDF4 StreamingWriter (which needs
-  h5py) and keeps no copy of the output: every put must be bit for bit
+  StripRecorder stands in for the NetCDF4 StreamingWriter (to keep the
+  run's time) and keeps no copy of the output: every put must be bit for bit
   the same levels of the default route's result (rotated U10/V10 and U/V
   included), VORT within TOL_REL of a float64 evaluation of the vertex
   weights at sampled points, every var and level must arrive once;
@@ -121,7 +137,8 @@ one JSON line:
   width, with its spot checks (v1 vs v2 within 1e-6, v1 vs v0 within 3e-5
   of max|v0|);
 - production_e2e: mpassit_tpu_torch.tools.bench_production at this mesh
-  size with ``--writer digest`` (no h5py on the card): its inputs, the
+  size with ``--writer digest`` (the two runs' 7-GB files would not fit
+  the disk budget beside the smoke's own): its inputs, the
   warmed weights, then the streamed and the in-memory run each in a
   process of its own, their stages, peak host and device memory and
   pre-first-apply costs, and the fetch probe. It fails unless both
@@ -333,7 +350,7 @@ def prepare_inputs(work, parm, ncells, seed, classic):
     return nmls, {"ncells": mesh.ncells, "nvertices": mesh.nvertices,
                   "nz": NZ, "nsoil": NSOIL, "seed": seed,
                   "format": ("CDF-2 (scipy), record Time" if classic
-                             else "NetCDF4 (h5py)"),
+                             else "NetCDF4 (io/hdf5.py)"),
                   "input_bytes": in_bytes, "t_mesh_s": t_mesh,
                   "namelist": texts["namelist.input"]}
 
@@ -1380,7 +1397,8 @@ def sharded_phase(pipeline, nml, nml_sharded, default_art, device, seed,
 
 
 #: one rank of main_path_sharded_ranks: the CLI function with the file
-#: write left out (no NetCDF4 writer on the card), its stages, wall and
+#: write left out to keep the smoke run's time (the port writes the file
+#: without h5py; main_path_written times that write), its stages, wall and
 #: peak device memory printed as the last line of its output
 RANK_CHILD = r"""
 import json, os, sys, time
@@ -1599,6 +1617,124 @@ def profiled_phase(pipeline, nml, default_art, arts, calls, reduced):
     return launches
 
 
+def _writer_digests(art):
+    """What the in-memory writer would store from ``art``'s result: the
+    production tool's digest stand-in in place of the NetCDF4 file. Returns
+    the digest map and its data bytes."""
+    from mpassit_tpu_torch.io import wrf_writer
+    from mpassit_tpu_torch.tools.bench_production import DigestFile, digest_map
+
+    sink, orig = {}, wrf_writer.NetCDF4File
+    wrf_writer.NetCDF4File = lambda path, mode="w": DigestFile(sink, path,
+                                                               mode)
+    try:
+        wrf_writer.write_output(art.cfg.output_file, art.cfg, art.grid,
+                                art.data, art.result)
+    finally:
+        wrf_writer.NetCDF4File = orig
+    return digest_map(sink), sum(sink["bytes"].values())
+
+
+#: ``- <stage>: <seconds>s``, the CLI's log line of each Timings stage
+STAGE_LINE = r"^- (\w+): ([0-9.]+)s$"
+
+
+def written_phase(pipeline, nml, default_art, arts, smi, reduced,
+                  timeout=600):
+    """main_path_written: the normal entry point, ``python -m
+    mpassit_tpu_torch <namelist>``, as a child process on the shipped
+    namelist (weights cache warm, no write_output patched): its NetCDF4
+    file is read back through ``open_dataset`` and every variable, level by
+    level, must be bit for bit what the writer would store from
+    main_path's result (the digest stand-in's map). With less than twice
+    the file's bytes free in the run's directory it runs at a reduced
+    target grid of the same extent, its reference an in-process run of
+    that namelist, listed in ``reduced``."""
+    import re
+    import signal
+
+    from mpassit_tpu_torch.io.nc4 import open_dataset
+    from mpassit_tpu_torch.tools.bench_production import (compare_digests,
+                                                          digest_file)
+
+    t_phase = time.perf_counter()
+    ref, nbytes = _writer_digests(default_art)
+    t_ref = time.perf_counter() - t_phase
+    free = shutil.disk_usage(WORK).free
+    cut = []
+    if free < 2 * nbytes:
+        scale = (free / (2.5 * nbytes)) ** 0.5
+        grid = default_art.grid
+        nx, ny = max(8, int(grid.nx * scale)), max(8, int(grid.ny * scale))
+        with open(nml) as f:
+            text = f.read()
+        for key, val in (("nx", nx), ("ny", ny), ("dx", default_art.cfg.dx
+                                                    * grid.nx / nx),
+                         ("dy", default_art.cfg.dx * grid.nx / nx)):
+            text = re.sub(rf"(?m)^ {key} = .*$", f" {key} = {val}", text)
+        nml = os.path.join(WORK, "namelist_written.input")
+        with open(nml, "w") as f:
+            f.write(text)
+        arts.clear()
+        if pipeline.main([nml]) != 0 or not arts:
+            raise SystemExit("main_path_written: the reduced reference run "
+                             "failed")
+        ref, nbytes = _writer_digests(arts[0])
+        arts.clear()
+        cut = [f"target grid {nx}x{ny} < {grid.nx}x{grid.ny}: {free} bytes "
+               f"free < 2 x {nbytes}"]
+    out = default_art.cfg.output_file
+    if os.path.exists(out):
+        os.remove(out)
+    env = dict(os.environ,
+               PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "mpassit_tpu_torch", nml],
+                            cwd=WORK, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise SystemExit(f"main_path_written: over {timeout} s, killed")
+    t_child = time.perf_counter() - t0
+    stages = {m.group(1): float(m.group(2))
+              for m in re.finditer(STAGE_LINE, stderr, re.M)}
+    line = {"phase": "main_path_written", "rc": proc.returncode,
+            "t_s": t_child, "nvidia_smi": smi, "stages_s": stages,
+            "write_to_file_s": stages.get("write_to_file"),
+            "data_bytes": nbytes, "free_bytes_before": free,
+            "reference_digest_s": t_ref, "reduced": reduced + cut}
+    ok_ = proc.returncode == 0 and os.path.exists(out)
+    if ok_:
+        line["file_bytes"] = os.path.getsize(out)
+        with open(out, "rb") as f:
+            line["hdf5_signature"] = ok_ = f.read(8) == b"\x89HDF\r\n\x1a\n"
+    if ok_:
+        t0 = time.perf_counter()
+        with open_dataset(out) as f:
+            line["reader"] = type(f._f).__module__
+        got = digest_file(out)
+        line["read_back_s"] = time.perf_counter() - t0
+        differ, missing = compare_digests(ref, got)
+        line["vars_match"] = sum(1 for v in ref if got.get(v) == ref[v])
+        line["n_vars_differ"] = len(differ)
+        line["vars_differ"] = differ
+        line["levels"] = sum(len(v) for v in got.values())
+        ok_ = not differ and not missing
+        os.remove(out)
+    line["ok"] = bool(ok_)
+    line["t_phase_s"] = time.perf_counter() - t_phase
+    if not ok_:
+        line["stdout_tail"] = stdout[-1500:]
+        line["stderr_tail"] = stderr[-1500:]
+    emit(line)
+    if not ok_:
+        raise SystemExit("main_path_written failed its checks")
+
+
 def production_phase(ncells, timeout=600):
     """production_e2e: tools/bench_production.py with ``--writer digest``
     at ``ncells`` in processes of its own (the mesh cache and the built
@@ -1797,10 +1933,13 @@ def main(argv=None) -> int:
     for name, key in split_keys.items():
         timed(name, key)
     if not has_h5py:
-        # the NetCDF4 output writer needs h5py; the result is kept instead
+        # the in-process runs keep their result in memory and write no
+        # file: this keeps the smoke run's time (each 7-GB write is taken
+        # once, by main_path_written's CLI process). The output is no
+        # longer unwritable without h5py (io/hdf5.py)
         pipeline.write_output = lambda path, cfg, grid, data, res: None
-        print(json.dumps({"output_write":
-                          "captured in memory: h5py not installed"}))
+        print(json.dumps({"output_write": "captured in memory in the "
+                          "in-process runs; main_path_written writes it"}))
     os.environ["MPASSIT_PLATFORM"] = "cuda"
     route_launches, default_art, peaks = {}, None, {}
     for phase, (route, switches) in ROUTES.items():
@@ -1881,6 +2020,9 @@ def main(argv=None) -> int:
         del art
     for k in ("MPASSIT_ELL_KERNEL", "MPASSIT_GATHER_KERNEL"):
         os.environ.pop(k, None)
+
+    # --- the CLI in a process of its own, its NetCDF4 file read back -------
+    written_phase(pipeline, nml, default_art, arts, smi, reduced)
 
     # --- the main path sharded: a world of one over NCCL --------------------
     route_launches["sharded"] = sharded_phase(

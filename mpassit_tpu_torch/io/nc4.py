@@ -5,9 +5,11 @@ Replaces the functionality the reference consumes from netcdf-fortran/NetCDF-C
 ``nf90_create(NF90_NETCDF4)/def_dim/def_var/put_att/put_var`` for output
 (write_data.F90:173-997).
 
-- NetCDF4 files are HDF5; we read/write them through h5py using the standard
-  netCDF4-on-HDF5 conventions (dimension scales, ``_Netcdf4Dimid``,
-  ``DIMENSION_LIST``) so files interoperate with the netCDF-C library.
+- NetCDF4 files are HDF5 with the standard netCDF4-on-HDF5 conventions
+  (dimension scales, ``_Netcdf4Dimid``, ``DIMENSION_LIST``) so files
+  interoperate with the netCDF-C library. They are always written by the
+  port's own encoder (``io/hdf5.py``, numpy only), and read through h5py
+  where it is importable, else through ``io/hdf5.py``'s reader.
 - Classic-format files (CDF-1/2, common for MPAS history streams, and
   CDF-5, the 64-bit-data variant production MPAS runs write for >4 GiB
   variables) are read by the pure-Python ``_CDFReader`` below, from an
@@ -20,17 +22,21 @@ import sys
 
 import numpy as np
 
-_HDF5_MAGIC = b"\x89HDF\r\n\x1a\n"
+from ..errors import FatalError
+from . import hdf5
+
 #: classic-format magic -> version byte (CDF-1 32-bit offsets, CDF-2 64-bit
 #: offsets, CDF-5 64-bit data)
 _CDF_VERSIONS = {b"CDF\x01": 1, b"CDF\x02": 2, b"CDF\x05": 5}
 
 
 def _decode(v):
-    # h5py.Empty (a null dataspace: a zero-length text attribute) can only
-    # come from a file h5py opened, so h5py is never imported here
+    # a null dataspace (a zero-length text attribute): hdf5.Empty, or
+    # h5py.Empty, which can only come from a file h5py opened, so h5py is
+    # never imported here
     h5py = sys.modules.get("h5py")
-    if h5py is not None and isinstance(v, h5py.Empty):
+    if isinstance(v, hdf5.Empty) or (h5py is not None
+                                     and isinstance(v, h5py.Empty)):
         return ""
     if isinstance(v, bytes):
         return v.decode("utf-8", "replace")
@@ -259,27 +265,41 @@ class _CDFReader:
 _NC_DIM_NAME = "This is a netCDF dimension but not a netCDF variable. %10d"
 
 
+def _h5py():
+    """h5py, or None where it cannot be imported."""
+    try:
+        import h5py
+    except ImportError:
+        return None
+    return h5py
+
+
 class NetCDF4File:
-    """NetCDF4 (HDF5-backed) file with a small reader/writer API."""
+    """NetCDF4 (HDF5-backed) file with a small reader/writer API.
+
+    Write modes use the port's encoder (``io/hdf5.py``) everywhere, so
+    the machines without h5py write the same file; ``"r"`` reads through
+    h5py where it is importable, else through ``io/hdf5.py``'s reader;
+    any other mode needs h5py."""
 
     def __init__(self, path: str, mode: str = "r"):
-        import h5py
-
         self.path = path
         self.mode = mode
-        # track_order: netCDF-C enumerates dims/vars/attrs in creation order
-        # (HDF5 link/attr creation-order indexes); without it h5py defaults
-        # to name order and nc_inq_dimname(0) would return the alphabetically
-        # first dim instead of the first-defined one.
+        # the encoder tracks creation order (HDF5 link/attr creation-order
+        # indexes): netCDF-C enumerates dims/vars/attrs in creation order,
+        # and in name order nc_inq_dimname(0) would return the
+        # alphabetically first dim instead of the first-defined one.
         if mode in ("w", "w-", "x"):
-            self._f = h5py.File(path, mode, track_order=True)
+            self._f = hdf5.open_file(path, mode)
             # netCDF-C stamps every file it creates with _NCProperties
             # (libhdf5 superblock attr); real consumers (ncdump, UPP) carry
             # it through, so we write the same marker.
             self._f.attrs["_NCProperties"] = np.bytes_(
                 b"version=2,netcdf=4.9.0,hdf5=1.10.8")
         else:
-            self._f = h5py.File(path, mode)
+            h5py = _h5py()
+            self._f = (h5py.File(path, mode) if h5py is not None
+                       else hdf5.open_file(path, mode))
         self._dimids: dict[str, int] = {}
         if mode == "r":
             for name, ds in self._f.items():
@@ -298,10 +318,15 @@ class NetCDF4File:
         self.close()
 
     @staticmethod
-    def _is_dim(ds) -> bool:
-        import h5py
+    def _is_dataset(ds) -> bool:
+        h5py = sys.modules.get("h5py")
+        return isinstance(ds, hdf5.Dataset) or (
+            h5py is not None and isinstance(ds, h5py.Dataset))
 
-        return isinstance(ds, h5py.Dataset) and ds.attrs.get("CLASS") == b"DIMENSION_SCALE"
+    @classmethod
+    def _is_dim(cls, ds) -> bool:
+        return (cls._is_dataset(ds)
+                and ds.attrs.get("CLASS") == b"DIMENSION_SCALE")
 
     # -- reading -----------------------------------------------------------
 
@@ -324,11 +349,9 @@ class NetCDF4File:
         return ds.attrs.get("NAME", b"").startswith(b"%s" % name.encode())
 
     def var_names(self):
-        import h5py
-
         out = []
         for name, ds in self._f.items():
-            if isinstance(ds, h5py.Dataset) and self.has_var(name):
+            if self._is_dataset(ds) and self.has_var(name):
                 out.append(name)
         return out
 
@@ -372,9 +395,7 @@ class NetCDF4File:
             # Empty strings use a null dataspace (how netCDF-C stores
             # zero-length text attrs, e.g. stagger="" on mass-point vars).
             if value == "":
-                import h5py
-
-                target.attrs[name] = h5py.Empty(np.dtype("S1"))
+                target.attrs[name] = hdf5.Empty(np.dtype("S1"))
             else:
                 target.attrs[name] = np.bytes_(value.encode())
         elif isinstance(value, (int, np.integer)):
@@ -405,12 +426,12 @@ class NetCDF4File:
     def create_var(self, name: str, dims, dtype, data=None, fill=None,
                    compress: bool = False):
         """def_var + optional immediate put_var. dims are dimension names."""
-        shape = tuple(self._f[d].shape[0] for d in dims)
-        kwargs = {}
         if compress:
-            kwargs.update(compression="gzip", compression_opts=1, shuffle=True)
+            raise FatalError(f"{name}: compress=True: the port's HDF5 "
+                             "encoder stores contiguous data only")
+        shape = tuple(self._f[d].shape[0] for d in dims)
         ds = self._f.create_dataset(name, shape=shape, dtype=dtype,
-                                    track_order=True, **kwargs)
+                                    track_order=True)
         for i, d in enumerate(dims):
             ds.dims[i].attach_scale(self._f[d])
         ds.attrs["_Netcdf4Coordinates"] = np.array(
@@ -438,7 +459,7 @@ def open_dataset(path: str):
     """nf90_open equivalent: dispatch on file magic (HDF5 vs classic CDF)."""
     with open(path, "rb") as f:
         magic = f.read(8)
-    if magic.startswith(_HDF5_MAGIC):
+    if magic.startswith(hdf5.MAGIC):
         return NetCDF4File(path, "r")
     if magic[:4] in _CDF_VERSIONS:
         return _CDFReader(path)

@@ -29,12 +29,16 @@ recipe:
   allocation) and loading the five kernel libraries (cold builds or found
   in ``_build/``);
 - ``--writer`` (no default, no fallback): ``netcdf4`` writes real files
-  (h5py) and compares them variable by variable, bit for bit; ``digest``
-  installs ``DigestFile`` in place of the NetCDF4 file in each child, which
-  takes a blake2b digest of exactly the arrays the NetCDF4 writer would
-  store, per variable and level, and the two digest maps are compared. A
-  digest run writes no file, so its ``write_to_file``, ``stream_write_s``
-  and overlap are reported as null with the reason, its digest times apart;
+  (through the port's own HDF5 encoder, ``io/hdf5.py``: no h5py needed)
+  and compares them variable by variable, bit for bit (``compare_files``,
+  through ``open_dataset``: the port's HDF5 reader where h5py is not
+  installed); ``digest`` installs ``DigestFile`` in place of the NetCDF4
+  file in each child, which takes a blake2b digest of exactly the arrays
+  the NetCDF4 writer would store, per variable and level, and the two
+  digest maps are compared. A digest is a choice, for a disk that cannot
+  hold both runs' files (two 7-GB files at the CONUS grid): a digest run
+  writes no file, so its ``write_to_file``, ``stream_write_s`` and overlap
+  are reported as null with the reason, its digest times apart;
 - ``fetch_probe``: in a child, one 256-MiB device -> host copy, pageable
   (``Tensor.cpu()``) and into a pinned buffer.
 
@@ -69,7 +73,7 @@ NX = 1801
 NY = 1061
 DX = 3000.0         # at NX; a smaller grid keeps the extent
 #: the writer's times a digest run cannot give
-NO_WRITER = "no NetCDF4 writer on this machine: digest stand-in, no file"
+NO_WRITER = "--writer digest chosen: digest stand-in, no file written"
 
 
 def _production_dir(cache_dir):
@@ -275,7 +279,8 @@ class _ReadBack:
 
 class DigestFile:
     """Stands in for ``io/nc4.NetCDF4File`` in write mode where no NetCDF4
-    file can be written. The writers' calls run as they would; each write
+    file is to be written (``--writer digest``). The writers' calls run
+    as they would; each write
     digests what the file would store (the data in the variable's dtype,
     C order): per level (axis 1) of a 4-D variable, else the whole
     variable as level 0. A level written again is digested again, so the
@@ -360,6 +365,21 @@ def digest_map(sink) -> dict:
         shape = sink["shapes"][var]
         n = shape[1] if len(shape) == 4 else 1
         out[var] = [levels.get(k) for k in range(n)]
+    return out
+
+
+def digest_file(path) -> dict:
+    """The digest map of an existing output file, read back: what a
+    DigestFile would hold had it stood in for the writer of that file."""
+    from ..io.nc4 import open_dataset
+
+    out = {}
+    with open_dataset(path) as f:
+        for var in f.var_names():
+            a = np.asarray(f.read_var(var))
+            out[var] = ([_digest(a[0, k]) for k in range(a.shape[1])]
+                        if a.ndim == 4 else [_digest(a)])
+            del a
     return out
 
 

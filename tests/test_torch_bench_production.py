@@ -4,7 +4,8 @@ Both measured children run the CLI on MPASSIT_PLATFORM=cpu, each in its
 own process. With ``--writer netcdf4`` the streamed and in-memory files are
 equal bit for bit; with ``--writer digest`` the two digest maps are equal
 and complete, and equal to the digests of the real files, read back (so
-the stand-in digests exactly what the NetCDF4 writer stores). One flipped
+the stand-in digests exactly what the NetCDF4 writer stores). With h5py
+blocked from import, ``--writer netcdf4`` writes the same files. One flipped
 value makes both comparisons name its variable; ``--rss-only`` starts from
 an empty mismatch list (the JAX tool keeps stale names). The inputs equal
 the JAX tool's ``build_inputs`` at the same size, read back, and the
@@ -17,6 +18,7 @@ import importlib.util
 import json
 import os
 import shutil
+import sys
 
 import h5py
 import jax.numpy as jnp
@@ -36,16 +38,7 @@ SIZE = dict(ncells=3000, nz=3, nx=40, ny=30)
 ARGS = ["--ncells", "3000", "--nz", "3", "--nx", "40", "--ny", "30"]
 
 
-def digest_netcdf(path) -> dict:
-    """The digest map of an existing output file, read back: what a
-    DigestFile would hold had it stood in for the writer of that file."""
-    out = {}
-    with open_dataset(path) as f:
-        for var in f.var_names():
-            a = np.asarray(f.read_var(var))
-            out[var] = ([bp._digest(a[0, k]) for k in range(a.shape[1])]
-                        if a.ndim == 4 else [bp._digest(a)])
-    return out
+digest_netcdf = bp.digest_file
 
 
 def _root_state():
@@ -117,6 +110,29 @@ def test_netcdf4_children_write_equal_files(netcdf4_run):
     assert "skipped" in res["fetch_probe"]
     assert {"bilinear", "nearest", "conserve", "vertex", "edge1",
             "edge2"} == set(res["warm_weights"])
+
+
+def test_netcdf4_writer_runs_without_h5py(cache, cpu_platform, netcdf4_run,
+                                         tmp_path, monkeypatch):
+    """--writer netcdf4 with h5py blocked from import in the tool's process
+    and in both children (an ``h5py`` on their path that raises
+    ImportError): both files are written, compared through the port's
+    reader, and bit for bit the files of the run where h5py is installed."""
+    stub = tmp_path / "blocked" / "h5py"
+    stub.mkdir(parents=True)
+    (stub / "__init__.py").write_text('raise ImportError("h5py blocked")\n')
+    monkeypatch.setenv("PYTHONPATH", str(stub.parent) + os.pathsep
+                       + os.environ.get("PYTHONPATH", ""))
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    res, d = bp.run_production(cache, "netcdf4", keep_outputs=True, **SIZE)
+    assert res["ok"] and not res.get("rss_run_errors"), res
+    assert res["streamed_equals_inmemory_file"] is True
+    assert res["writer_mismatch"] == []
+    _, _, files = netcdf4_run
+    for tag in ("streamed", "in_memory"):
+        assert res["subprocess_stages"][tag]["write_to_file"] > 0
+        assert bp.compare_files(os.path.join(d, f"rss_{tag}.nc"),
+                                files[tag]) == []
 
 
 def test_digest_maps_equal_and_complete(digest_run):

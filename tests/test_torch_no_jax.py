@@ -6,7 +6,8 @@ MPASSIT_GATHER_KERNEL=1) and the tool's problem build and variant run, and
 finds neither ``jax`` nor any ``mpassit_tpu`` module in sys.modules, nor the
 JAX package's ``bench`` or ``tools`` (the production tool, the trace
 reader and the multi-rank dry run imported too, and the pipeline run once
-more sharded on a mesh of one, replicated and ring); and no source file of the port, nor chip_smoke.py,
+more sharded on a mesh of one, replicated and ring, and the port's
+diff_against_reference run on its output); and no source file of the port, nor chip_smoke.py,
 names jax, mpassit_tpu, bench or tools in an absolute import."""
 
 import ast
@@ -28,6 +29,7 @@ from mpassit_tpu_torch.ops import gather_kernel, onehot_kernel
 from mpassit_tpu_torch.ops import variant_kernels, write_wall
 from mpassit_tpu_torch.tools import bench_production, kernel_variants
 from mpassit_tpu_torch.tools import dryrun_multichip, trace_summary
+from mpassit_tpu_torch.tools import diff_against_reference
 from mpassit_tpu_torch.parallel import sharding
 from mpassit_tpu_torch.config import Config
 from mpassit_tpu_torch.mesh.synthetic import synthetic_voronoi_mesh
@@ -83,6 +85,8 @@ for decomp in ("replicate", "ring"):
     cfg.n_device_shards, cfg.source_decomp = -1, decomp
     art = run_pipeline(cfg, device="cpu")
     assert np.isfinite(art.result.u).all()
+out = os.path.join(d, "out.nc")
+assert diff_against_reference.main([out, out]) == 0
 ell, _ = kernel_variants.build_problem(2000, 41, 25, os.path.join(d, "kv"))
 assert kernel_variants.run_variants(ell, "cpu", cols=128)["ok"]
 bound = [m for m in sys.modules
