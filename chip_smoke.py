@@ -58,6 +58,22 @@ one JSON line:
   stand-in, in this process) and of the whole phase.
   With less than twice the file's bytes free it runs at a smaller target
   grid of the same extent, listed in ``reduced``;
+- main_path_matrix: the CLI function on the same inputs and shipped
+  varlists (919 packed columns, full width), its target replaced once per
+  MATRIX entry: mercator (450x265 at 12 km), polar stereographic (400x400
+  at 15 km), regional lat-lon (700x270 at 0.1 degree), global lat-lon
+  (1200x600 at 0.3 degree: nx not a multiple of 32, pole rows and the
+  seam) and the file target, the committed 150x100 36-km Lambert fixture
+  written by netCDF-C (tests/data/nc4_foreign, read by the port's own
+  HDF5 reader: superblock 2, dense attributes, deflated chunks); each grid
+  cut to keep the phase within MATRIX_BUDGET_S (180 s), its cut in
+  ``reduced``, weights cold. Per run: packed_apply's 3 launches (the
+  pack, EDGE1, EDGE2) against those owed and no plain call, the pack's
+  rotation window only on the Lambert (file) target, every variable
+  within TOL_REL of the float64 evaluation of the check phase (Q4 only on
+  Lambert), its stages and peak device memory. Then the committed
+  fixtures read through the port's HDF5 reader against their manifest
+  (h5py's read, made with them), and the phase's seconds;
 - main_path_sharded: the CLI on the default route once more, unsharded
   (caches warm: this phase's yardstick), then with n_device_shards = -1
   as a world of one process over NCCL (MPASSIT_COORDINATOR,
@@ -108,9 +124,12 @@ one JSON line:
   first group (rotation) and the last group (the methods' tails and the
   zero tail) of main_path_streamed's grouped pack, each also bit for bit
   (torch.equal on the device) the same columns of its own full-width
-  output; the one-hot kernels for each precision, with the number of
-  bf16 product terms and the achieved tensor-core TFLOP/s at the padded K
-  (ops/onehot_kernel.launch_plan); the gather kernel also
+  output; packed_apply on main_path_matrix's mercator pack (its own
+  column counts, no rotation window: the kernel's launch off Lambert,
+  with its launches from that run); the one-hot kernels for each
+  precision, with the number of bf16 product terms and the achieved
+  tensor-core TFLOP/s at the padded K (ops/onehot_kernel.launch_plan);
+  the gather kernel also
   bit for bit against packed_apply; the ELL-built split_bf16 variants v1
   and v2 (CC 128 and 256) on the bilinear operator at 512 columns, within
   1e-6 of max|plain|, v1 bit for bit v2 at both CCs
@@ -146,10 +165,10 @@ one JSON line:
   the tool's JSON with ``reduced``.
 
 The counters of every kernel are zeroed just before each phase that drives
-a path (the three main-path routes, each run of main_path_sharded,
-main_path_profiled, main_path_streamed, write_wall, kernel_variants) and
-read just after; the
-kernels line takes each kernel's launches from the phase that runs it.
+a path (the three main-path routes, each run of main_path_matrix and of
+main_path_sharded, main_path_profiled, main_path_streamed, write_wall,
+kernel_variants) and read just after; the kernels line takes each
+kernel's launches from the phase that runs it.
 
 Then the kernels line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed phase exits non-zero.
@@ -176,6 +195,47 @@ TOL_KERNEL = 1e-6         # kernel vs plain, relative to max|plain|
 BUDGET_GB = 4
 #: main_path_sharded's runs, by source_decomp
 SHARDED = ("replicate", "ring", "allgather")
+#: main_path_matrix's targets: the namelist lines of each grid (in place of
+#: the shipped namelist's Lambert CONUS block) and the cut that keeps the
+#: phase within MATRIX_BUDGET_S
+MATRIX = {
+    "mercator": ([
+        "target_grid_type = 'mercator'", "nx = 451", "ny = 266",
+        "dx = 12000.0", "dy = 12000.0", "ref_lat = 38.5", "ref_lon = -97.5",
+        "truelat1 = 20.0", "stand_lon = -97.5"],
+        "mercator 450x265 at 12 km < 1800x1060 at 3 km (the shipped "
+        "CONUS extent)"),
+    "polar": ([
+        "target_grid_type = 'polar'", "nx = 401", "ny = 401",
+        "dx = 15000.0", "dy = 15000.0", "ref_lat = 65.0",
+        "ref_lon = -100.0", "truelat1 = 60.0", "stand_lon = -100.0"],
+        "polar stereographic 400x400 at 15 km (6000 km square) < 3 km"),
+    "latlon_regional": ([
+        "target_grid_type = 'lat-lon'", "nx = 701", "ny = 271",
+        "dx = 0.1", "dy = 0.1", "ref_lat = 37.0", "ref_lon = -95.0",
+        "is_regional = .true."],
+        "regional lat-lon 700x270 at 0.1 degree < 0.03 degree (3 km) "
+        "over CONUS"),
+    # 0.3 degree: 1200 columns (not a multiple of 32), fine enough that a
+    # tile of 32x32 points reads at most W_CAP = 2048 of the mesh's cells
+    # (the pack's W is in the phase's line); on a coarser grid the pack is
+    # not built and the methods run as separate applies
+    "latlon_global": ([
+        "target_grid_type = 'lat-lon'", "nx = 1201", "ny = 601",
+        "stand_lon = 0.0", "is_regional = .false."],
+        "global lat-lon 1200x600 (0.3 degree) < 1440x720 (0.25 degree)"),
+    "file": ([
+        "target_grid_type = 'file'",
+        'file_target_grid = "{fixtures}/wrf_lambert_target.nc"'],
+        "file target: the committed 150x100 36-km netCDF-C fixture < "
+        "1800x1060 at 3 km"),
+}
+#: the namelist keys a MATRIX entry replaces
+GRID_KEYS = ("target_grid_type", "nx", "ny", "dx", "dy", "ref_lat",
+             "ref_lon", "truelat1", "truelat2", "stand_lon", "output_file")
+MATRIX_BUDGET_S = 180
+#: the committed netCDF-C fixtures and their manifest
+FIXTURES = os.path.join(HERE, "tests", "data", "nc4_foreign")
 #: the H100 SXM's published rates (NVIDIA data sheet; at 700 W): device
 #: memory bytes/s, dense bf16 tensor-core and f32 CUDA-core FLOP/s
 HBM_BYTES_S = 3.35e12
@@ -536,7 +596,7 @@ def _time_ms(torch, fn, n):
 
 
 def kernel_vs_plain(art, device, seed, launches_per_run, pack_geom,
-                    streamed_launches):
+                    streamed_launches, mercator):
     """Every kernel against its plain PyTorch version on the card at the
     main path's shapes. Returns (per-case results, {kernel: summary});
     the summary's ms/plain_ms, bound and library_ms are those of the
@@ -544,7 +604,9 @@ def kernel_vs_plain(art, device, seed, launches_per_run, pack_geom,
     its route's main-path run}; ``pack_geom``: the column counts, rotation
     windows and group width of the streamed run's grouped pack, whose
     first and last groups are cases of their own (``launches_per_run``
-    from ``streamed_launches``)."""
+    from ``streamed_launches``); ``mercator``: main_path_matrix's mercator
+    run (its artifact, packed_apply's launches there, its pack's column
+    counts), whose pack is a case of its own with no rotation window."""
     import numpy as np
     import torch
 
@@ -783,6 +845,40 @@ def kernel_vs_plain(art, device, seed, launches_per_run, pack_geom,
             del sg, sg2, lg, wg, Ag
         del gp, slab, locs, ws, As, full
 
+    def mercator_case(m_art, m_launches, m_cols):
+        """packed_apply on the mercator target's own pack (its weights
+        from the cache, its column counts): the main path's kernel with no
+        rotation window, off Lambert."""
+        keys = ("bilinear", "nearest", "conserve")
+        if len(m_cols) != len(keys):
+            raise AssertionError(f"unexpected mercator pack {m_cols}")
+        mW = build_weights(m_art.cfg, m_art.mesh, m_art.grid,
+                           m_art.routing)
+        mp = PackedSlabRegridder([(mW[k], c) for k, c in zip(keys, m_cols)],
+                                 device,
+                                 cache_dir=m_art.cfg.weights_cache_dir)
+        if mp.rotate:
+            raise AssertionError(f"mercator pack rotates: {mp.rotate}")
+        slab, _ = operands(mp, mp.Cp)
+        locs, ws = mp._ell_dev()
+        kw = dict(ranges=tuple(mp.ranges), nty=mp.nty, ntx=mp.ntx)
+        slab2 = slab.view(-1, mp.Cp)
+        run_case("packed_apply",
+                 f"packed_mercator_{m_art.grid.nx}x{m_art.grid.ny}"
+                 f"_cp{mp.Cp}_norot",
+                 lambda: pk.packed_apply(slab, locs, ws, **kw),
+                 lambda: pk.packed_apply_plain(slab, locs, ws, **kw), False,
+                 extra=lambda got: {"cols": list(m_cols), "W": mp.W,
+                                    "ranges": list(kw["ranges"])},
+                 work=(*ell_work(torch, locs, kw["ranges"], mp.W,
+                                 mp.nty * 32 * mp.ntx * 32 * mp.Cp),
+                       PEAK_F32),
+                 library=lambda: csr_yardstick(torch, locs, ws,
+                                               kw["ranges"], mp.W,
+                                               slab2.shape[0], slab2),
+                 launches=m_launches)
+        del mp, slab, slab2, locs, ws
+
     # the packed bilinear+nearest+conserve operator at Cp = 1024 with the
     # mass-wind window (0, nz, nz) first, like the main path's pack
     cols = {"bilinear": 1024 - 2 * 16, "nearest": 16, "conserve": 16}
@@ -796,6 +892,8 @@ def kernel_vs_plain(art, device, seed, launches_per_run, pack_geom,
     del pack
     torch.cuda.empty_cache()
     group_cases(pack_geom)
+    torch.cuda.empty_cache()
+    mercator_case(*mercator)
     torch.cuda.empty_cache()
     edge = SlabMatmulRegridder(W["edge1"], device,
                                cache_dir=cfg.weights_cache_dir)
@@ -1735,6 +1833,125 @@ def written_phase(pipeline, nml, default_art, arts, smi, reduced,
         raise SystemExit("main_path_written failed its checks")
 
 
+def _matrix_namelist(nml, name):
+    """The main path's namelist (inputs, varlists, weights cache) with its
+    target grid replaced by MATRIX[name]'s; returns its path."""
+    lines, extra = [], [e.format(fixtures=FIXTURES) for e in MATRIX[name][0]]
+    with open(nml) as f:
+        for line in f:
+            key = line.split("=")[0].strip().lower()
+            if key in GRID_KEYS:
+                continue
+            if line.strip() == "/":
+                lines += [f" {e}\n" for e in extra + [
+                    f'output_file = "{WORK}/matrix_{name}.nc"']]
+            lines.append(line)
+    path = os.path.join(WORK, f"namelist_matrix_{name}.input")
+    with open(path, "w") as f:
+        f.write("".join(lines))
+    return path
+
+
+def fixtures_check():
+    """The committed netCDF-C fixtures read through the port's HDF5 reader
+    (h5py is not used even where importable): every dataset and attribute
+    against the manifest made from h5py's read. Returns {file: ok}."""
+    from mpassit_tpu_torch.io import hdf5
+    from mpassit_tpu_torch.testing import describe_hdf5
+
+    with open(os.path.join(FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)["files"]
+    out = {}
+    for name, want in manifest.items():
+        r = hdf5.open_file(os.path.join(FIXTURES, name))
+        try:
+            got = json.loads(json.dumps(describe_hdf5(r)))
+        finally:
+            r.close()
+        out[name] = got == want
+    return out
+
+
+def matrix_phase(pipeline, nml, device, seed, reduced, arts, calls, packs,
+                 split):
+    """main_path_matrix: the CLI function on the main path's inputs and
+    varlists (919 packed columns, full width) once per MATRIX target, each
+    grid cut to keep the phase within MATRIX_BUDGET_S (its cut in
+    ``reduced``), weights cold. Each run must launch packed_apply the 3
+    times it owes (the pack, EDGE1, EDGE2) with no plain call, rotate in
+    the kernel only on a Lambert target (the file's), and hold every
+    variable within TOL_REL of the float64 evaluation (no Q4 rotation off
+    Lambert). Then the committed fixtures against their manifest. Returns
+    (the mercator run's artifact, its result dropped, and launches)."""
+    import gc
+
+    import torch
+
+    from mpassit_tpu_torch.constants import PROJ_LC
+    from mpassit_tpu_torch.ops import matmul_apply
+
+    t_phase = time.perf_counter()
+    mercator = None
+    for name, (_, cut) in MATRIX.items():
+        path = _matrix_namelist(nml, name)
+        arts.clear()
+        calls.clear()
+        packs.clear()
+        split.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        _zero_counters()
+        t0 = time.perf_counter()
+        rc = pipeline.main([path])
+        t_main = time.perf_counter() - t0
+        launches, plain_calls = _counters()
+        peak = torch.cuda.max_memory_allocated(device) / 1e9
+        art = arts[0] if arts else None
+        line = {"phase": "main_path_matrix", "target": name, "rc": rc,
+                "t_s": t_main, "reduced": reduced + [cut]}
+        if rc != 0 or art is None:
+            emit({**line, "ok": False})
+            raise SystemExit(f"main_path_matrix {name} failed: rc={rc}")
+        art.regridders.clear()
+        expected = expected_launches("ell", calls, matmul_apply.FETCH)
+        lc = art.cfg.proj_code == PROJ_LC
+        rotated = [bool(p["rotate"]) for p in packs]
+        t0 = time.perf_counter()
+        errs = check_outputs(art, 4000, seed)
+        line.update(
+            grid=[art.grid.ny, art.grid.nx], proj_code=art.cfg.proj_code,
+            map_proj_char=art.cfg.map_proj_char,
+            stages_s=art.timings.stages, interp_data_split_s=dict(split),
+            launches=launches, expected_launches=expected,
+            applies=list(calls), packs=list(packs), plain_calls=plain_calls,
+            peak_device_gb=peak, in_kernel_rotation=rotated,
+            check_s=time.perf_counter() - t0, tol_rel=TOL_REL,
+            max_rel_err=max(errs.values()), n_vars=len(errs),
+            per_var_max_rel_err=errs)
+        line["ok"] = ok_ = bool(
+            launches == expected and expected["packed_apply"] == 3
+            and not any(plain_calls.values())
+            and rotated == [lc] and max(errs.values()) <= TOL_REL)
+        emit(line)
+        if not ok_:
+            raise SystemExit(f"main_path_matrix {name} failed its checks")
+        if name == "mercator":
+            art.result = art.data = None
+            mercator = (art, launches["packed_apply"], packs[0]["cols"])
+        del art
+    fixtures = fixtures_check()
+    t_phase = time.perf_counter() - t_phase
+    line = {"phase": "main_path_matrix", "fixtures_match_manifest":
+            fixtures, "t_phase_s": t_phase,
+            "budget_s": MATRIX_BUDGET_S}
+    line["ok"] = ok_ = all(fixtures.values()) and t_phase <= MATRIX_BUDGET_S
+    emit(line)
+    if not ok_:
+        raise SystemExit("main_path_matrix failed its checks")
+    return mercator
+
+
 def production_phase(ncells, timeout=600):
     """production_e2e: tools/bench_production.py with ``--writer digest``
     at ``ncells`` in processes of its own (the mesh cache and the built
@@ -1870,7 +2087,7 @@ def main(argv=None) -> int:
     from mpassit_tpu_torch.ops import matmul_apply
     from mpassit_tpu_torch.run import pipeline
 
-    arts, calls, pack_geom = [], [], {}
+    arts, calls, packs, pack_geom = [], [], [], {}
     run_pipeline = pipeline.run_pipeline
 
     def observed_run(cfg, device, dtype=None):
@@ -1887,6 +2104,9 @@ def main(argv=None) -> int:
             C = sum(1 if np.ndim(b) == 1 else np.shape(b)[1]
                     for b in blocks)
             calls.append([kind, C + (-C) % matmul_apply.LANE, 0])
+            if kind == "packed":
+                packs.append({"cols": list(self.col_counts), "W": self.W,
+                              "rotate": [list(w) for w in self.rotate]})
             return orig(self, src, *a, **kw)
         cls.apply_np = wrapped
 
@@ -2024,6 +2244,10 @@ def main(argv=None) -> int:
     # --- the CLI in a process of its own, its NetCDF4 file read back -------
     written_phase(pipeline, nml, default_art, arts, smi, reduced)
 
+    # --- the namelist-path matrix: other targets, the file target --------
+    mercator = matrix_phase(pipeline, nml, device, args.seed, reduced, arts,
+                            calls, packs, split)
+
     # --- the main path sharded: a world of one over NCCL --------------------
     route_launches["sharded"] = sharded_phase(
         pipeline, nml, nml_sharded, default_art, device, args.seed, reduced,
@@ -2054,7 +2278,8 @@ def main(argv=None) -> int:
         default_art, device, args.seed,
         {k: route_launches[PHASE_OF[k]][k] for k in KERNELS
          if PHASE_OF[k] in route_launches}, pack_geom,
-        route_launches["streamed"])
+        route_launches["streamed"], mercator)
+    del mercator
     grid = default_art.grid
     phase_launches = dict(route_launches)
     phase_launches["write_wall"], summary["write_wall"] = write_wall_phase(

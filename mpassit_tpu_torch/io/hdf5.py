@@ -27,20 +27,33 @@ The writer (``open_file(path, "w")``) places each dataset's data where it
 is first written, in the order of first writes, and writes it there with
 positioned writes (``os.pwrite``), so a writer thread shares no file
 offset; the metadata goes after the data and the superblock at offset 0
-when the file is closed. The reader (``open_file(path, "r")``) parses what
-the writer writes and reads data through ``mmap``; any other structure
-(dense attribute or link storage, symbol-table groups, chunks written,
-filters, shared messages, other superblock versions) raises ``FatalError``
-naming it. Both expose the small part of h5py's interface that
+when the file is closed.
+
+The reader (``open_file(path, "r")``) reads, through ``mmap``, what this
+writer writes and what netCDF-C (4.9, HDF5 1.10-1.14) and h5py write by
+default: superblocks 0-3; old-style (symbol-table) groups and new-style
+groups with compact or dense links; compact or dense attributes (fractal
+heaps, v2 B-trees), variable-length strings; compact, contiguous and
+chunked data (v1 B-tree chunk index, layout 4's single-chunk and implicit
+indexes) through the deflate, shuffle and Fletcher32 filters, big-endian
+data as the dataset's own dtype, chunks never written as the fill value.
+Anything else raises ``FatalError`` naming it: layout 4's fixed-array,
+extensible-array and v2-B-tree chunk indexes (``libver="latest"`` writers
+of chunked data), any other filter (szip, n-bit, scale-offset, plugins),
+huge fractal-heap objects, filtered heap blocks, shared messages,
+external or virtual storage, a superblock not at offset 0, offsets not of
+8 bytes. Both expose the small part of h5py's interface that
 ``NetCDF4File`` calls.
 """
 
 from __future__ import annotations
 
+import bisect
 import mmap
 import os
 import struct
 import threading
+import zlib
 
 import numpy as np
 
@@ -546,6 +559,76 @@ class _Writer:
 
 
 # ---- reader --------------------------------------------------------------
+# What the reader parses, by the specification's sections: superblocks 0-3
+# (II.A); version-1 and version-2 object headers (IV.A.1); old-style groups
+# (symbol table message, v1 B-tree of type 0, SNOD nodes, local heap:
+# III.A.1, III.B, III.D) and new-style groups with compact or dense links
+# (link info message, fractal heap, v2 B-trees of types 5 and 6: III.A.2,
+# III.G); compact or dense attributes (attribute info message, v2 B-trees
+# of types 8 and 9) in attribute messages of versions 1-3; compact,
+# contiguous and chunked data (layout message versions 1-4; chunks under a
+# v1 B-tree of type 1, or layout 4's single-chunk and implicit indexes),
+# through the deflate, shuffle and Fletcher32 filters.
+
+def _u(b, p, n):
+    """The little-endian unsigned integer of ``n`` bytes at ``p``."""
+    return int.from_bytes(b[p:p + n], "little")
+
+
+def _enc_size(n):
+    """Bytes that encode counts up to ``n`` (H5VM_limit_enc_size)."""
+    return (max(int(n), 1).bit_length() - 1) // 8 + 1
+
+
+def _log2(n):
+    return int(n).bit_length() - 1
+
+
+#: filter ids (HDF5's and the registered plugins') for the refusals
+_FILTER_NAMES = {1: "DEFLATE", 2: "SHUFFLE", 3: "FLETCHER32", 4: "SZIP",
+                 5: "N-BIT", 6: "SCALE-OFFSET", 32000: "LZF",
+                 32001: "BLOSC", 32004: "LZ4", 32008: "BITSHUFFLE",
+                 32013: "ZFP", 32015: "ZSTD", 32017: "SZ"}
+_FILTERS_READ = (1, 2, 3)
+#: layout 4's chunk index types
+_CHUNK_INDEX = {1: "SINGLE CHUNK", 2: "IMPLICIT", 3: "FIXED ARRAY",
+                4: "EXTENSIBLE ARRAY", 5: "V2 B-TREE"}
+
+
+def fletcher32(data) -> int:
+    """H5_checksum_fletcher32 of ``data``: big-endian 16-bit words (an odd
+    last byte is the high byte of one more), both sums reduced with end-
+    around carry, so a non-zero sum lies in [1, 65535]."""
+    b = np.frombuffer(data, np.uint8)
+    if b.size % 2:
+        b = np.concatenate([b, np.zeros(1, np.uint8)])
+    w = b.view(">u2").astype(np.uint64)
+    if not w.size:
+        return 0
+    s1 = int(w.sum())
+    # the sum of the running sums: word i counts n - i times
+    s2 = int((w * (np.arange(w.size, 0, -1, dtype=np.uint64)
+                   % np.uint64(65535))).sum())
+    if not s1:
+        return 0
+    return ((s2 - 1) % 65535 + 1) << 16 | ((s1 - 1) % 65535 + 1)
+
+
+def _unshuffle(data, size):
+    """Undo the shuffle filter: ``size`` byte planes back into elements
+    (one strided column store per plane); trailing bytes that fill no
+    element stay as they are."""
+    n = len(data) // size
+    if size <= 1 or n <= 1:
+        return data
+    planes = np.frombuffer(data, np.uint8, count=n * size).reshape(size, n)
+    out = np.empty(len(data), np.uint8)
+    cols = out[:n * size].reshape(n, size)
+    for k in range(size):
+        cols[:, k] = planes[k]
+    out[n * size:] = np.frombuffer(data, np.uint8, offset=n * size)
+    return out
+
 
 class _Object:
     """One object header's messages: (type, flags, creation index, body)."""
@@ -620,7 +703,8 @@ class _Object:
 
 
 def _decode_type(path, b, p=0):
-    """(numpy dtype or ("vlen", base dtype), end) of the datatype at ``p``."""
+    """(numpy dtype, ("vlen", base dtype) or ("vlen_str", charset), end)
+    of the datatype at ``p``."""
     cls, ver = b[p] & 0x0F, b[p] >> 4
     bits = b[p + 1] | b[p + 2] << 8 | b[p + 3] << 16
     size = struct.unpack_from("<I", b, p + 4)[0]
@@ -637,6 +721,9 @@ def _decode_type(path, b, p=0):
     if cls == 9 and (bits & 0x0F) == 0:
         base, p = _decode_type(path, b, p)
         return ("vlen", base), p
+    if cls == 9 and (bits & 0x0F) == 1:
+        _, p = _decode_type(path, b, p)      # the base: a 1-byte char
+        return ("vlen_str", (bits >> 8) & 0x0F), p
     if cls == 6:
         names, formats, offsets = [], [], []
         for _ in range(bits & 0xFFFF):
@@ -658,14 +745,14 @@ def _decode_type(path, b, p=0):
         return np.dtype({"names": names, "formats": formats,
                          "offsets": offsets, "itemsize": size}), p
     kinds = {2: "time", 4: "bitfield", 5: "opaque", 7: "region reference",
-             8: "enumerated", 9: "variable-length string", 10: "array"}
+             8: "enumerated", 9: "variable-length", 10: "array"}
     raise FatalError(f"{path}: DATATYPE CLASS {cls} "
                      f"({kinds.get(cls, 'unknown')}) NOT SUPPORTED")
 
 
 def _decode_space(b):
     """Shape tuple, () for scalar, None for the null dataspace."""
-    ver, rank, flags = b[0], b[1], b[2]
+    ver, rank = b[0], b[1]
     if ver == 1:
         p = 8
     else:
@@ -673,6 +760,190 @@ def _decode_space(b):
         if b[3] == 2:
             return None
     return tuple(struct.unpack_from(f"<{rank}Q", b, p)) if rank else ()
+
+
+class _FractalHeap:
+    """A fractal heap (III.G): its header, and its direct blocks found
+    through the doubling table of the root (a direct block, or an
+    indirect block whose rows hold direct blocks and, past the largest
+    direct block size, indirect blocks)."""
+
+    def __init__(self, f, addr):
+        self.f, buf, path = f, f._buf, f.path
+        if bytes(buf[addr:addr + 4]) != b"FRHP":
+            raise FatalError(f"{path}: NO FRACTAL HEAP HEADER AT {addr}")
+        self.id_len, filt_len, self.flags = struct.unpack_from(
+            "<HHB", buf, addr + 5)
+        if filt_len:
+            raise FatalError(f"{path}: FRACTAL HEAP AT {addr}: FILTERED "
+                             "(COMPRESSED) HEAP BLOCKS NOT SUPPORTED")
+        max_man = struct.unpack_from("<I", buf, addr + 10)[0]
+        (self.width, start, max_direct, self.max_heap_bits, _, root,
+         self.root_rows) = struct.unpack_from("<HQQHHQH", buf, addr + 110)
+        end = addr + 142
+        if struct.unpack_from("<I", buf, end)[0] != lookup3(
+                bytes(buf[addr:end])):
+            raise FatalError(f"{path}: FRACTAL HEAP AT {addr}: CHECKSUM "
+                             "MISMATCH")
+        self.addr = addr
+        self.off_size = (self.max_heap_bits + 7) // 8
+        self.len_size = min((_log2(max_direct) + 7) // 8,
+                            _enc_size(max_man))
+        self.first_row_bits = _log2(start) + _log2(self.width)
+        self.max_direct_rows = _log2(max_direct) - _log2(start) + 2
+        rows = max(self.max_heap_bits - self.first_row_bits, 2)
+        self.row_size = [start] + [start << max(r - 1, 0)
+                                   for r in range(1, rows)]
+        self.blocks = []       # (heap offset, address, size), by offset
+        if root == UNDEF:
+            return
+        if self.root_rows == 0:
+            self._direct(root, 0, start)
+        else:
+            self._indirect(root, 0, self.root_rows)
+        self.blocks.sort()
+
+    def _direct(self, addr, off, size):
+        buf, path = self.f._buf, self.f.path
+        if bytes(buf[addr:addr + 4]) != b"FHDB":
+            raise FatalError(f"{path}: NO FRACTAL HEAP DIRECT BLOCK AT "
+                             f"{addr}")
+        if self.flags & 2:
+            at = addr + 13 + self.off_size
+            raw = bytearray(buf[addr:addr + size])
+            stored = struct.unpack_from("<I", raw, at - addr)[0]
+            raw[at - addr:at - addr + 4] = bytes(4)
+            if stored != lookup3(bytes(raw)):
+                raise FatalError(f"{path}: FRACTAL HEAP DIRECT BLOCK AT "
+                                 f"{addr}: CHECKSUM MISMATCH")
+        self.blocks.append((off, addr, size))
+
+    def _indirect(self, addr, off, nrows):
+        buf, path = self.f._buf, self.f.path
+        if bytes(buf[addr:addr + 4]) != b"FHIB":
+            raise FatalError(f"{path}: NO FRACTAL HEAP INDIRECT BLOCK AT "
+                             f"{addr}")
+        p = addr + 13 + self.off_size
+        children = []
+        for r in range(nrows):
+            for _ in range(self.width):
+                child = _u(buf, p, 8)
+                p += 8
+                if child != UNDEF:
+                    children.append((r, child, off))
+                off += self.row_size[r]
+        if struct.unpack_from("<I", buf, p)[0] != lookup3(
+                bytes(buf[addr:p])):
+            raise FatalError(f"{path}: FRACTAL HEAP INDIRECT BLOCK AT "
+                             f"{addr}: CHECKSUM MISMATCH")
+        for r, child, at in children:
+            if r < self.max_direct_rows:
+                self._direct(child, at, self.row_size[r])
+            else:
+                self._indirect(child, at, _log2(self.row_size[r])
+                               - self.first_row_bits + 1)
+
+    def get(self, hid):
+        """The object of heap ID ``hid`` (bytes)."""
+        path = self.f.path
+        kind = (hid[0] >> 4) & 3
+        if kind == 2:                                   # tiny: in the ID
+            if self.id_len <= 18:
+                n = (hid[0] & 0x0F) + 1
+                return bytes(hid[1:1 + n])
+            n = ((hid[0] & 0x0F) << 8 | hid[1]) + 1
+            return bytes(hid[2:2 + n])
+        if kind == 1:
+            raise FatalError(f"{path}: FRACTAL HEAP AT {self.addr}: HUGE "
+                             "OBJECT (STORED OUTSIDE THE HEAP'S BLOCKS) "
+                             "NOT SUPPORTED")
+        if kind:
+            raise FatalError(f"{path}: FRACTAL HEAP AT {self.addr}: HEAP ID "
+                             f"OF TYPE {kind}")
+        off = _u(hid, 1, self.off_size)
+        n = _u(hid, 1 + self.off_size, self.len_size)
+        i = bisect.bisect_right(self.blocks, (off, UNDEF, 0)) - 1
+        if i < 0 or off + n > self.blocks[i][0] + self.blocks[i][2]:
+            raise FatalError(f"{path}: FRACTAL HEAP AT {self.addr}: NO "
+                             f"BLOCK HOLDS OFFSET {off}")
+        start, addr, _ = self.blocks[i]
+        return bytes(self.f._buf[addr + off - start:addr + off - start + n])
+
+
+def _btree2_records(f, addr):
+    """Every record of the v2 B-tree at ``addr`` (III.A.2), in key order:
+    (type, [record bytes])."""
+    buf, path = f._buf, f.path
+    if bytes(buf[addr:addr + 4]) != b"BTHD":
+        raise FatalError(f"{path}: NO V2 B-TREE HEADER AT {addr}")
+    btype = buf[addr + 5]
+    node_size, rsize, depth = struct.unpack_from("<IHH", buf, addr + 6)
+    root, nroot = struct.unpack_from("<QH", buf, addr + 16)
+    if struct.unpack_from("<I", buf, addr + 34)[0] != lookup3(
+            bytes(buf[addr:addr + 34])):
+        raise FatalError(f"{path}: V2 B-TREE AT {addr}: CHECKSUM MISMATCH")
+    # H5B2__hdr_init: the largest record count of a node at each depth and
+    # of the subtree under it, and the bytes that encode them
+    max_nrec = [(node_size - 10) // rsize]
+    cum = [max_nrec[0]]
+    cum_size = [0]
+    nrec_size = _enc_size(max_nrec[0])
+    for d in range(1, depth + 1):
+        ptr = 8 + nrec_size + (cum_size[d - 1] if d > 1 else 0)
+        max_nrec.append((node_size - 10 - ptr) // (rsize + ptr))
+        cum.append((max_nrec[d] + 1) * cum[d - 1] + max_nrec[d])
+        cum_size.append(_enc_size(cum[d]))
+    out = []
+
+    def node(at, nrec, d):
+        sig = b"BTLF" if d == 0 else b"BTIN"
+        if bytes(buf[at:at + 4]) != sig:
+            raise FatalError(f"{path}: NO V2 B-TREE NODE AT {at}")
+        recs = [bytes(buf[at + 6 + i * rsize:at + 6 + (i + 1) * rsize])
+                for i in range(nrec)]
+        p = at + 6 + nrec * rsize
+        kids = []
+        if d:
+            for _ in range(nrec + 1):
+                kids.append((_u(buf, p, 8), _u(buf, p + 8, nrec_size)))
+                p += 8 + nrec_size + (cum_size[d - 1] if d > 1 else 0)
+        if struct.unpack_from("<I", buf, p)[0] != lookup3(bytes(buf[at:p])):
+            raise FatalError(f"{path}: V2 B-TREE NODE AT {at}: CHECKSUM "
+                             "MISMATCH")
+        for i, r in enumerate(recs):
+            if d:
+                node(*kids[i], d - 1)
+            out.append(r)
+        if d:
+            node(*kids[nrec], d - 1)
+
+    if root != UNDEF and nroot:
+        node(root, nroot, depth)
+    return btype, out
+
+
+def _btree1_entries(f, addr, key_size):
+    """(key bytes, child address) of every leaf entry of the v1 B-tree at
+    ``addr`` (III.A.1), in key order: symbol table nodes (type 0) or
+    chunks (type 1)."""
+    buf, path = f._buf, f.path
+    out, todo = [], [addr]
+    while todo:
+        at = todo.pop()
+        if bytes(buf[at:at + 4]) != b"TREE":
+            raise FatalError(f"{path}: NO V1 B-TREE NODE AT {at}")
+        level, used = buf[at + 5], struct.unpack_from("<H", buf, at + 6)[0]
+        p = at + 24
+        entries = []
+        for _ in range(used):
+            entries.append((bytes(buf[p:p + key_size]),
+                            _u(buf, p + key_size, 8)))
+            p += key_size + 8
+        if level:
+            todo.extend(c for _, c in reversed(entries))
+        else:
+            out.extend(entries)
+    return out
 
 
 class _RDataset(Dataset):
@@ -697,24 +968,114 @@ class _RDataset(Dataset):
             return [[] for _ in self.shape]
         return [[self._f._by_addr(a) for a in refs] for refs in dl]
 
+    def _where(self, what):
+        return f"{self._f.path}: {self.name}: {what}"
+
     def _layout(self):
-        path, name = self._f.path, self.name
-        if self._obj.find(0x0B):
-            raise FatalError(f"{path}: {name}: FILTER PIPELINE (COMPRESSED "
-                             "OR FILTERED DATA) NOT SUPPORTED")
+        """("compact", bytes), ("contiguous", address), ("chunked",
+        index, address, chunk shape) or ("implicit" | "single", address,
+        chunk shape[, filtered size, filter mask])."""
         (_, _, _, lay), = self._obj.find(0x08)
-        ver, cls = lay[0], lay[1]
+        ver, rank = lay[0], len(self.shape)
+        if ver in (1, 2):
+            nd, cls, p = lay[1], lay[2], 8
+            addr = None
+            if cls:
+                addr, p = _u(lay, p, 8), p + 8
+            dims = struct.unpack_from(f"<{nd}I", lay, p)
+            p += 4 * nd
+            if cls == 0:
+                n = struct.unpack_from("<I", lay, p)[0]
+                return "compact", lay[p + 4:p + 4 + n]
+            if cls == 1:
+                return "contiguous", addr
+            return "chunked", "btree1", addr, dims[:rank]
         if ver not in (3, 4):
-            raise FatalError(f"{path}: {name}: DATA LAYOUT MESSAGE VERSION "
-                             f"{ver} NOT SUPPORTED")
+            raise FatalError(self._where(f"DATA LAYOUT MESSAGE VERSION {ver}"
+                                         " NOT SUPPORTED"))
+        cls = lay[1]
+        if cls == 0:
+            n = struct.unpack_from("<H", lay, 2)[0]
+            return "compact", lay[4:4 + n]
         if cls == 1:
-            return struct.unpack_from("<Q", lay, 2)[0]
-        if cls == 2 and ver == 3 and struct.unpack_from("<Q", lay, 3)[0] \
-                == UNDEF:
-            return UNDEF                      # chunked, no chunk written
-        kind = {0: "COMPACT", 2: "CHUNKED DATA WITH CHUNKS WRITTEN",
-                3: "VIRTUAL"}.get(cls, f"CLASS {cls}")
-        raise FatalError(f"{path}: {name}: {kind} LAYOUT NOT SUPPORTED")
+            return "contiguous", _u(lay, 2, 8)
+        if cls == 2 and ver == 3:
+            nd = lay[2]
+            return ("chunked", "btree1", _u(lay, 3, 8),
+                    struct.unpack_from(f"<{nd}I", lay, 11)[:rank])
+        if cls == 2:
+            flags, nd, w = lay[2], lay[3], lay[4]
+            dims = [_u(lay, 5 + i * w, w) for i in range(nd)][:rank]
+            p = 5 + nd * w
+            index = lay[p]
+            p += 1
+            if index == 1:                     # single chunk
+                size = mask = None
+                if flags & 2:
+                    size, mask = _u(lay, p, 8), _u(lay, p + 8, 4)
+                    p += 12
+                return "single", _u(lay, p, 8), dims, size, mask
+            if index == 2:                     # implicit: no index
+                return "implicit", _u(lay, p, 8), dims
+            raise FatalError(self._where(
+                f"CHUNK INDEX TYPE {index} "
+                f"({_CHUNK_INDEX.get(index, 'UNKNOWN')}, DATA LAYOUT "
+                "VERSION 4) NOT SUPPORTED"))
+        kind = {3: "VIRTUAL"}.get(cls, f"CLASS {cls}")
+        raise FatalError(self._where(f"{kind} LAYOUT NOT SUPPORTED"))
+
+    def _filters(self):
+        """[(filter id, client data)] of the filter pipeline message, in
+        the order they were applied when writing."""
+        msgs = self._obj.find(0x0B)
+        if not msgs:
+            return []
+        m = msgs[0][3]
+        ver, n = m[0], m[1]
+        p = 8 if ver == 1 else 2
+        out = []
+        for _ in range(n):
+            fid = struct.unpack_from("<H", m, p)[0]
+            p += 2
+            nlen = 0
+            if ver == 1 or fid >= 256:
+                nlen = struct.unpack_from("<H", m, p)[0]
+                p += 2
+            _, ncd = struct.unpack_from("<HH", m, p)
+            p += 4 + (nlen + (-nlen % 8) if ver == 1 else nlen)
+            cd = struct.unpack_from(f"<{ncd}I", m, p)
+            p += 4 * ncd + (4 if ver == 1 and ncd % 2 else 0)
+            if fid not in _FILTERS_READ:
+                raise FatalError(self._where(
+                    f"FILTER {fid} ({_FILTER_NAMES.get(fid, 'UNKNOWN')}) "
+                    "NOT SUPPORTED"))
+            out.append((fid, cd))
+        return out
+
+    def _unfilter(self, raw, filters, mask):
+        """A chunk's bytes through the filters not masked off, last
+        first."""
+        data = raw
+        for i in range(len(filters) - 1, -1, -1):
+            if mask >> i & 1:
+                continue
+            fid, cd = filters[i]
+            if fid == 1:
+                data = zlib.decompress(data)
+            elif fid == 2:
+                data = _unshuffle(data, cd[0] if cd else
+                                  self.dtype.itemsize)
+            else:
+                body, stored = data[:-4], _u(data, len(data) - 4, 4)
+                want = fletcher32(body)
+                # HDF5 1.6 stored it with the bytes of each half swapped
+                swapped = ((want & 0xFF00FF00) >> 8) | ((want & 0x00FF00FF)
+                                                        << 8)
+                if stored not in (want, swapped):
+                    raise FatalError(self._where(
+                        "FLETCHER32 CHECKSUM MISMATCH IN A CHUNK"))
+                data = body
+        return data
 
     def _fill(self):
         """The fill value of a version-2 or -3 fill value message, 0 where
@@ -730,16 +1091,80 @@ class _RDataset(Dataset):
                 return np.frombuffer(raw, self.dtype)[0]
         return 0
 
+    def _chunks(self, lay):
+        """[(chunk offset, address, stored bytes, filter mask)] of every
+        chunk written, and the chunk shape."""
+        if lay[0] == "chunked":
+            _, _, addr, cdims = lay
+            if addr == UNDEF:
+                return [], cdims
+            rank = len(self.shape)
+            out = []
+            # a key: chunk bytes, filter mask, rank + 1 offsets (the last
+            # the element-size axis, 0)
+            for key, child in _btree1_entries(self._f, addr,
+                                              8 + 8 * (rank + 1)):
+                size, mask = struct.unpack_from("<II", key)
+                out.append((struct.unpack_from(f"<{rank}Q", key, 8), child,
+                            size, mask))
+            return out, cdims
+        addr, cdims = lay[1], lay[2]
+        if addr == UNDEF:
+            return [], cdims
+        nbytes = int(np.prod(cdims, dtype=np.int64)) * self.dtype.itemsize
+        if lay[0] == "single":
+            _, _, _, size, mask = lay
+            return [((0,) * len(cdims), addr,
+                     nbytes if size is None else size, mask or 0)], cdims
+        grid = [-(-s // c) for s, c in zip(self.shape, cdims)]
+        return [(tuple(i * c for i, c in zip(idx, cdims)),
+                 addr + k * nbytes, nbytes, 0)
+                for k, idx in enumerate(np.ndindex(*grid))], cdims
+
+    def _read_chunked(self, lay):
+        """Decode chunk by chunk into one preallocated array: edge chunks
+        cropped to the dataspace, chunks never written the fill value."""
+        buf, shape = self._f._buf, self.shape
+        filters = self._filters()
+        chunks, cdims = self._chunks(lay)
+        cdims = tuple(int(c) for c in cdims)
+        inside = [c for c in chunks if all(o < s for o, s in zip(c[0],
+                                                                 shape))]
+        total = int(np.prod([-(-s // c) for s, c in zip(shape, cdims)],
+                            dtype=np.int64))
+        if len({c[0] for c in inside}) < total or not total:
+            out = np.full(shape, self._fill(), self.dtype)
+        else:
+            out = np.empty(shape, self.dtype)
+        n = int(np.prod(cdims, dtype=np.int64))
+        for off, addr, size, mask in inside:
+            raw = buf[addr:addr + size]
+            data = self._unfilter(raw, filters, mask) if filters else raw
+            if len(data) < n * self.dtype.itemsize:
+                raise FatalError(self._where(
+                    f"CHUNK AT {addr} HOLDS {len(data)} BYTES, NOT "
+                    f"{n * self.dtype.itemsize}"))
+            chunk = np.frombuffer(data, self.dtype, count=n).reshape(cdims)
+            sel = tuple(slice(o, min(o + c, s))
+                        for o, c, s in zip(off, cdims, shape))
+            out[sel] = chunk[tuple(slice(0, s.stop - s.start)
+                                   for s in sel)]
+        return out
+
     def __getitem__(self, key):
         if key is not Ellipsis and key != ():
-            raise FatalError(f"{self._f.path}: {self.name}: ONLY [...] IS "
-                             "READ")
-        addr = self._layout()
-        if addr == UNDEF:
-            return np.full(self.shape, self._fill(), self.dtype)
+            raise FatalError(self._where("ONLY [...] IS READ"))
+        lay = self._layout()
         n = int(np.prod(self.shape, dtype=np.int64))
+        if lay[0] == "compact":
+            return np.frombuffer(lay[1], self.dtype, count=n).reshape(
+                self.shape).copy()
+        if lay[0] != "contiguous":
+            return self._read_chunked(lay)
+        if lay[1] == UNDEF:
+            return np.full(self.shape, self._fill(), self.dtype)
         return np.frombuffer(self._f._buf, self.dtype, count=n,
-                             offset=addr).reshape(self.shape).copy()
+                             offset=lay[1]).reshape(self.shape).copy()
 
 
 class _Reader:
@@ -754,6 +1179,7 @@ class _Reader:
         except ValueError:                   # an empty file
             self._fh.close()
             raise FatalError(f"{path}: NOT AN HDF5 FILE") from None
+        self._gcols, self._objs = {}, {}
         try:
             self._open()
         except BaseException:
@@ -764,90 +1190,172 @@ class _Reader:
         buf, path = self._buf, self.path
         if bytes(buf[:8]) != MAGIC:
             raise FatalError(f"{path}: NO HDF5 SUPERBLOCK AT OFFSET 0")
-        if buf[8] not in (0, 1):
-            raise FatalError(f"{path}: SUPERBLOCK VERSION {buf[8]} NOT "
+        ver = buf[8]
+        if ver in (0, 1):
+            sizes = buf[13], buf[14]
+        elif ver in (2, 3):
+            sizes = buf[9], buf[10]
+        else:
+            raise FatalError(f"{path}: SUPERBLOCK VERSION {ver} NOT "
                              "SUPPORTED")
-        if buf[13] != 8 or buf[14] != 8:
-            raise FatalError(f"{path}: OFFSETS OF {buf[13]} AND LENGTHS OF "
-                             f"{buf[14]} BYTES NOT SUPPORTED")
-        entry = 24 + 32 + (4 if buf[8] == 1 else 0)
-        root = _Object(self, struct.unpack_from("<Q", buf, entry + 8)[0])
-        if root.find(0x11):
-            raise FatalError(f"{path}: SYMBOL-TABLE GROUP (V1 B-TREE AND "
-                             "LOCAL HEAP) NOT SUPPORTED")
-        linfo = root.find(0x02)
-        if not linfo:
-            raise FatalError(f"{path}: ROOT GROUP WITHOUT LINK INFO")
-        li = linfo[0][3]
-        heap_at = 2 + (8 if li[1] & 1 else 0)
-        if struct.unpack_from("<Q", li, heap_at)[0] != UNDEF:
-            raise FatalError(f"{path}: DENSE LINK STORAGE (FRACTAL HEAP, "
-                             "V2 B-TREES) NOT SUPPORTED")
-        links = []
-        for _, _, _, m in root.find(0x06):
-            fl = m[1]
-            p = 2
-            ltype = 0
-            if fl & 0x08:
-                ltype, p = m[p], p + 1
-            crt = 0
-            if fl & 0x04:
-                crt, p = struct.unpack_from("<Q", m, p)[0], p + 8
-            if fl & 0x10:
-                p += 1
-            w = 1 << (fl & 3)
-            n = int.from_bytes(m[p:p + w], "little")
-            name = m[p + w:p + w + n].decode("utf-8")
-            if ltype != 0:
-                raise FatalError(f"{path}: LINK {name}: SOFT OR EXTERNAL "
-                                 "LINKS NOT SUPPORTED")
-            links.append((crt if li[1] & 1 else name, name,
-                          struct.unpack_from("<Q", m, p + w + n)[0]))
-        self._links = {name: a for _, name, a in sorted(links)}
+        if sizes != (8, 8):
+            raise FatalError(f"{path}: OFFSETS OF {sizes[0]} AND LENGTHS OF "
+                             f"{sizes[1]} BYTES NOT SUPPORTED")
+        if ver < 2:
+            base = _u(buf, 24 + (4 if ver == 1 else 0), 8)
+            root_addr = _u(buf, 24 + 32 + (4 if ver == 1 else 0) + 8, 8)
+        else:
+            if struct.unpack_from("<I", buf, 44)[0] != lookup3(
+                    bytes(buf[:44])):
+                raise FatalError(f"{path}: SUPERBLOCK VERSION {ver}: "
+                                 "CHECKSUM MISMATCH")
+            base, root_addr = _u(buf, 12, 8), _u(buf, 36, 8)
+        if base:
+            raise FatalError(f"{path}: BASE ADDRESS {base} (A USER BLOCK) "
+                             "NOT SUPPORTED")
+        root = _Object(self, root_addr)
+        self._links = self._group_links(root)
         self._names = {a: name for name, a in self._links.items()}
-        self._objs = {}
         self.attrs = self._attrs(root)
 
-    def _attrs(self, obj):
-        """{name: value} in creation order (name order if untracked)."""
+    # -- groups --------------------------------------------------------------
+
+    def _group_links(self, obj):
+        """{name: object header address} of a group's hard links, in
+        creation order where the group tracks it, else in name order (the
+        order h5py iterates)."""
         path = self.path
+        st = obj.find(0x11)
+        if st:
+            return self._symbol_table(*struct.unpack_from("<QQ", st[0][3]))
+        linfo = obj.find(0x02)
+        if not linfo:
+            raise FatalError(f"{path}: GROUP WITHOUT LINK INFO OR SYMBOL "
+                             "TABLE")
+        li = linfo[0][3]
+        tracked = bool(li[1] & 1)
+        heap_at = 2 + (8 if tracked else 0)
+        heap_addr, name_bt = struct.unpack_from("<QQ", li, heap_at)
+        if heap_addr == UNDEF:
+            msgs = [m for _, _, _, m in obj.find(0x06)]
+        else:
+            heap = _FractalHeap(self, heap_addr)
+            btype, recs = _btree2_records(self, name_bt)
+            if btype != 5:
+                raise FatalError(f"{path}: LINK NAME INDEX OF B-TREE TYPE "
+                                 f"{btype}")
+            msgs = [heap.get(r[4:]) for r in recs]
+        links = [self._link(m) for m in msgs]
+        links.sort(key=lambda e: e[0] if tracked else e[1].encode())
+        return {name: a for _, name, a in links}
+
+    def _link(self, m):
+        """(creation order, name, address) of a link message."""
+        fl = m[1]
+        p = 2
+        ltype = 0
+        if fl & 0x08:
+            ltype, p = m[p], p + 1
+        crt = 0
+        if fl & 0x04:
+            crt, p = struct.unpack_from("<Q", m, p)[0], p + 8
+        if fl & 0x10:
+            p += 1
+        w = 1 << (fl & 3)
+        n = int.from_bytes(m[p:p + w], "little")
+        name = m[p + w:p + w + n].decode("utf-8")
+        if ltype != 0:
+            raise FatalError(f"{self.path}: LINK {name}: SOFT OR EXTERNAL "
+                             "LINKS NOT SUPPORTED")
+        return crt, name, struct.unpack_from("<Q", m, p + w + n)[0]
+
+    def _symbol_table(self, btree, lheap):
+        """An old-style group: the names (local heap) and object headers
+        of its symbol table nodes, which its v1 B-tree keeps in name
+        order."""
+        buf, path = self._buf, self.path
+        if bytes(buf[lheap:lheap + 4]) != b"HEAP":
+            raise FatalError(f"{path}: NO LOCAL HEAP AT {lheap}")
+        data = _u(buf, lheap + 24, 8)
+        out = {}
+        for _, snod in _btree1_entries(self, btree, 8):
+            if bytes(buf[snod:snod + 4]) != b"SNOD":
+                raise FatalError(f"{path}: NO SYMBOL TABLE NODE AT {snod}")
+            for i in range(struct.unpack_from("<H", buf, snod + 6)[0]):
+                e = snod + 8 + 40 * i
+                at = data + _u(buf, e, 8)
+                name = bytes(buf[at:buf.find(b"\0", at)]).decode("utf-8")
+                out[name] = _u(buf, e + 8, 8)
+        return out
+
+    # -- attributes ----------------------------------------------------------
+
+    def _attrs(self, obj):
+        """{name: value} in creation order where tracked, else in name
+        order; compact (attribute messages in the header) or dense (the
+        attribute info message's fractal heap and v2 B-tree)."""
+        tracked = obj.crt_tracked
+        msgs = [(crt, m) for _, _, crt, m in obj.find(0x0C)]
         for _, _, _, m in obj.find(0x15):
-            if struct.unpack_from("<Q", m, 4 if m[1] & 1 else 2)[0] != UNDEF:
-                raise FatalError(f"{path}: DENSE ATTRIBUTE STORAGE "
-                                 "(FRACTAL HEAP, V2 B-TREES) NOT SUPPORTED")
-        out = []
-        for _, _, crt, m in obj.find(0x0C):
-            ver = m[0]
-            nsz, tsz, ssz = struct.unpack_from("<HHH", m, 2)
-            if ver == 1:
-                p = 8
-                name = m[p:p + nsz].rstrip(b"\0").decode("utf-8")
-                p += nsz + (-nsz % 8)
-                tb = m[p:p + tsz]
-                p += tsz + (-tsz % 8)
-                sb = m[p:p + ssz]
-                p += ssz + (-ssz % 8)
-            elif ver in (2, 3):
-                if m[1] & 3:
-                    raise FatalError(f"{path}: SHARED ATTRIBUTE DATATYPE "
-                                     "OR DATASPACE NOT SUPPORTED")
-                p = 8 + (1 if ver == 3 else 0)
-                name = m[p:p + nsz].rstrip(b"\0").decode("utf-8")
-                tb, sb = m[p + nsz:p + nsz + tsz], \
-                    m[p + nsz + tsz:p + nsz + tsz + ssz]
-                p += nsz + tsz + ssz
-            else:
-                raise FatalError(f"{path}: ATTRIBUTE MESSAGE VERSION {ver}")
-            dtype, _ = _decode_type(path, tb)
-            shape = _decode_space(sb)
-            out.append((crt if obj.crt_tracked else name, name,
-                        self._value(dtype, shape, m[p:])))
-        return {name: v for _, name, v in sorted(out, key=lambda e: e[0])}
+            tracked = tracked or bool(m[1] & 1)
+            heap_addr, name_bt = struct.unpack_from("<QQ", m,
+                                                    4 if m[1] & 1 else 2)
+            if heap_addr == UNDEF:
+                continue
+            heap = _FractalHeap(self, heap_addr)
+            btype, recs = _btree2_records(self, name_bt)
+            if btype != 8:
+                raise FatalError(f"{self.path}: ATTRIBUTE NAME INDEX OF "
+                                 f"B-TREE TYPE {btype}")
+            for r in recs:
+                if r[8] & 2:
+                    raise FatalError(f"{self.path}: SHARED ATTRIBUTE NOT "
+                                     "SUPPORTED")
+                msgs.append((struct.unpack_from("<I", r, 9)[0],
+                             heap.get(r[:8])))
+        out = [(crt, *self._attr(m)) for crt, m in msgs]
+        out.sort(key=lambda e: e[0] if tracked else e[1].encode())
+        return {name: v for _, name, v in out}
+
+    def _attr(self, m):
+        """(name, value) of an attribute message of version 1, 2 or 3."""
+        path = self.path
+        ver = m[0]
+        nsz, tsz, ssz = struct.unpack_from("<HHH", m, 2)
+        if ver == 1:
+            p = 8
+            name = m[p:p + nsz].rstrip(b"\0").decode("utf-8")
+            p += nsz + (-nsz % 8)
+            tb = m[p:p + tsz]
+            p += tsz + (-tsz % 8)
+            sb = m[p:p + ssz]
+            p += ssz + (-ssz % 8)
+        elif ver in (2, 3):
+            if m[1] & 3:
+                raise FatalError(f"{path}: SHARED ATTRIBUTE DATATYPE "
+                                 "OR DATASPACE NOT SUPPORTED")
+            p = 8 + (1 if ver == 3 else 0)
+            name = m[p:p + nsz].rstrip(b"\0").decode("utf-8")
+            tb, sb = m[p + nsz:p + nsz + tsz], \
+                m[p + nsz + tsz:p + nsz + tsz + ssz]
+            p += nsz + tsz + ssz
+        else:
+            raise FatalError(f"{path}: ATTRIBUTE MESSAGE VERSION {ver}")
+        dtype, _ = _decode_type(path, tb)
+        return name, self._value(dtype, _decode_space(sb), m[p:])
 
     def _value(self, dtype, shape, data):
         if shape is None:
             return Empty(dtype)
         n = int(np.prod(shape, dtype=np.int64)) if shape else 1
+        if isinstance(dtype, tuple) and dtype[0] == "vlen_str":
+            # h5py gives str: a scalar as it is, an array as objects
+            out = np.empty(n, object)
+            for i in range(n):
+                cnt, coll, idx = struct.unpack_from("<IQI", data, 16 * i)
+                raw = self._heap_object(coll, idx)[:cnt] if cnt else b""
+                out[i] = raw.decode("utf-8", "surrogateescape")
+            return out[0] if not shape else out.reshape(shape)
         if isinstance(dtype, tuple):                 # vlen of references
             out = np.empty(n, object)
             for i in range(n):
@@ -859,21 +1367,29 @@ class _Reader:
         return a[0] if not shape else a.reshape(shape).copy()
 
     def _heap_object(self, coll, idx):
-        buf = self._buf
-        if bytes(buf[coll:coll + 4]) != b"GCOL":
-            raise FatalError(f"{self.path}: NO GLOBAL HEAP COLLECTION AT "
-                             f"{coll}")
-        size = struct.unpack_from("<Q", buf, coll + 8)[0]
-        p, end = coll + 16, coll + size
-        while p + 16 <= end:
-            i, _, _, sz = struct.unpack_from("<HHIQ", buf, p)
-            if i == idx:
-                return bytes(buf[p + 16:p + 16 + sz])
-            if i == 0:
-                break
-            p += 16 + sz + (-sz % 8)
-        raise FatalError(f"{self.path}: GLOBAL HEAP {coll} HAS NO OBJECT "
-                         f"{idx}")
+        """Object ``idx`` of the global heap collection at ``coll``
+        (III.E); each collection is parsed once."""
+        objs = self._gcols.get(coll)
+        if objs is None:
+            buf = self._buf
+            if bytes(buf[coll:coll + 4]) != b"GCOL":
+                raise FatalError(f"{self.path}: NO GLOBAL HEAP COLLECTION "
+                                 f"AT {coll}")
+            size = struct.unpack_from("<Q", buf, coll + 8)[0]
+            p, end, objs = coll + 16, coll + size, {}
+            while p + 16 <= end:
+                i, _, _, sz = struct.unpack_from("<HHIQ", buf, p)
+                if i == 0:
+                    break
+                objs[i] = bytes(buf[p + 16:p + 16 + sz])
+                p += 16 + sz + (-sz % 8)
+            self._gcols[coll] = objs
+        if idx not in objs:
+            raise FatalError(f"{self.path}: GLOBAL HEAP {coll} HAS NO "
+                             f"OBJECT {idx}")
+        return objs[idx]
+
+    # -- h5py's interface ----------------------------------------------------
 
     def _by_addr(self, addr):
         name = self._names.get(int(addr))

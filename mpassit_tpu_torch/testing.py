@@ -13,9 +13,18 @@ diag streams; ``record_time=False`` makes it a fixed dimension of length 1.
 The port's reader takes record data past 2 GiB (a 655,362-cell history
 file with 55 levels has more), which scipy's reader does not. Variables
 keep their leading ``Time`` axis either way.
+
+``describe_hdf5`` is the manifest of an HDF5 file's contents (each
+dataset's dtype, shape and blake2b digest, each attribute's value, in
+order), the same through h5py and through the port's ``io/hdf5`` reader:
+tests/nc4_foreign.py writes it for the committed netCDF-C fixtures of
+tests/data/nc4_foreign, and the tests and ``chip_smoke.py`` hold the
+port's reader to it.
 """
 
 from __future__ import annotations
+
+import hashlib
 
 import numpy as np
 
@@ -105,3 +114,53 @@ def write_data_file_classic(mesh, path: str, fields: dict,
         xt[0] = np.frombuffer(padded.encode(), dtype="S1")
         for k, v in (attrs or {}).items():
             setattr(f, k, v)
+
+
+# ---- HDF5 manifests ------------------------------------------------------
+
+def _jsonable(v):
+    """An attribute value as h5py returns it, in JSON: numpy scalars and
+    arrays with their dtype, bytes as latin-1 text, str as is."""
+    if isinstance(v, (bytes, np.bytes_)):
+        return {"bytes": bytes(v).decode("latin-1")}
+    if isinstance(v, str):
+        return {"str": v}
+    if type(v).__name__ == "Empty":        # h5py's or io/hdf5's
+        return {"empty": v.dtype.str}
+    a = np.asarray(v)
+    if a.dtype.kind == "O":
+        return {"objects": [_jsonable(x) for x in a.reshape(-1)],
+                "shape": list(a.shape)}
+    if a.dtype.names:
+        return {"compound": str(a.dtype), "shape": list(a.shape)}
+    return {"dtype": a.dtype.str, "shape": list(a.shape),
+            "value": a.reshape(-1).tolist()}
+
+
+def digest(a) -> str:
+    """blake2b of an array's dtype, shape and bytes."""
+    a = np.ascontiguousarray(a)
+    h = hashlib.blake2b(digest_size=16)
+    h.update(f"{a.dtype.str}{a.shape}".encode())
+    h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def describe_hdf5(f) -> dict:
+    """What a file holds, read through ``f`` (an h5py file or the port's
+    ``io/hdf5`` reader; both expose items(), attrs, dtype, shape): per
+    dataset in iteration order its dtype, shape, digest and attributes
+    (REFERENCE_LIST and DIMENSION_LIST, which hold file addresses, by
+    their shape only), and the root's attributes, each in order."""
+    def attrs(obj):
+        return [[k, {"references": list(np.shape(v))}
+                 if k in ("REFERENCE_LIST", "DIMENSION_LIST")
+                 else _jsonable(v)] for k, v in obj.attrs.items()]
+
+    out = {"attrs": attrs(f), "datasets": []}
+    for name, ds in f.items():
+        a = ds[...]
+        out["datasets"].append({"name": name, "dtype": a.dtype.str,
+                                "shape": list(a.shape), "digest": digest(a),
+                                "attrs": attrs(ds)})
+    return out

@@ -11,8 +11,15 @@ Usage:
 Counterpart of ``tools/diff_against_reference.py``, with its flags, report
 and exit codes; it reads both files through the port's ``open_dataset``
 (NetCDF4 through h5py where it is importable, else through the port's own
-HDF5 reader; classic CDF-1/2/5 through the port's parser), so it runs
-where h5py is not installed.
+HDF5 reader, ``io/hdf5.py``; classic CDF-1/2/5 through the port's
+parser), so it runs where h5py is not installed. Without h5py it reads the
+NetCDF4 files netCDF-C writes, as the Fortran MPASSIT writes its output
+(``nf90_create(NF90_NETCDF4)``): superblock 2, dense links and
+attributes (fractal heaps, v2 B-trees), chunked data under a v1 B-tree
+through deflate, shuffle and Fletcher32; and what h5py writes by default
+(symbol-table groups, v1 object headers). It refuses, naming them, layout
+4's fixed-array, extensible-array and v2-B-tree chunk indexes and any
+other filter.
 
 Exit code 0 when every shared variable agrees within tolerance; 1
 otherwise. Variables listed in KNOWN_DEVIATIONS are compared but reported

@@ -3,7 +3,8 @@ check against a real MPASSIT output, run with h5py blocked from import (it
 reads through the port's HDF5 reader, as on a machine without h5py): the
 counterparts of tests/test_diff_tool.py's four tests on a file the port
 wrote, and the JAX package's tool giving the same report, JSON and exit
-code on the same pair of files."""
+code on the same pair of files, also where the reference was written by
+netCDF-C (superblock 2, deflated, as the Fortran MPASSIT writes it)."""
 
 import json
 import os
@@ -16,6 +17,7 @@ import pytest
 
 from mpassit_tpu_torch.run import pipeline as tpipe
 
+import nc4_foreign as nf
 from test_pipeline import make_case
 from test_torch_pipeline import REPO, _port
 
@@ -100,6 +102,40 @@ def test_same_report_as_the_jax_tool(out_file, tmp_path, flags):
                 ("T2", (0, 1, 1), lambda x: 0.0))
     got = _run(out_file, bad, "--json", str(tmp_path / "port.json"), *flags)
     want = _run(out_file, bad, "--json", str(tmp_path / "jax.json"), *flags,
+                tool=os.path.join("tools", "diff_against_reference.py"))
+    assert want.returncode in (0, 1), want.stderr
+    assert got.returncode == want.returncode, got.stderr
+    assert got.stdout == want.stdout
+    assert json.loads((tmp_path / "port.json").read_text()) == json.loads(
+        (tmp_path / "jax.json").read_text())
+
+
+@pytest.mark.skipif(nf.libnetcdf() is None,
+                    reason="system libnetcdf not present")
+@pytest.mark.parametrize("flags", [[], ["--mask-unmapped", "--rtol", "1e-3",
+                                        "--skip", "Times", "T2"]])
+def test_netcdf_c_reference_same_report_as_the_jax_tool(out_file, tmp_path,
+                                                        flags):
+    """The reference file written by netCDF-C (superblock 2, every
+    variable deflated and shuffled, the global attributes dense), read by
+    the port's tool with h5py blocked: the same stdout, JSON report and
+    exit code as the JAX tool's through h5py on the same pair."""
+    ref = str(tmp_path / "reference_ncc.nc")
+    nf.copy_through_netcdf_c(out_file, ref)
+    with h5py.File(ref, "r") as f:
+        assert f["T"].compression == "gzip" and f["T"].shuffle
+    with open(ref, "rb") as f:
+        assert f.read(9)[8] == 2
+    bad = _edit(out_file, str(tmp_path / "bad.nc"),
+                ("T", (0, 0, 3, 4), lambda x: x + 1.0),
+                ("T", (0, 0, 1, 1), lambda x: 0.0),
+                ("U", (0, 0, 0, 0), lambda x: x + 0.5),
+                ("T2", (0, 1, 1), lambda x: 0.0))
+    same = _run(ref, out_file)
+    assert same.returncode == 0, same.stdout + same.stderr
+    assert "FAIL" not in same.stdout
+    got = _run(ref, bad, "--json", str(tmp_path / "port.json"), *flags)
+    want = _run(ref, bad, "--json", str(tmp_path / "jax.json"), *flags,
                 tool=os.path.join("tools", "diff_against_reference.py"))
     assert want.returncode in (0, 1), want.stderr
     assert got.returncode == want.returncode, got.stderr

@@ -417,31 +417,42 @@ def test_h5py_r_plus_edit_of_a_port_file(cli_files, tmp_path):
             assert nc.var_attrs("T2")["extra"] == 7
 
 
-def _h5py_gzip(path):
+def _fixed_array_index(path):
+    """A chunked dataset of libver "latest": layout 4, fixed-array
+    chunk index."""
+    with h5py.File(path, "w", libver="latest") as f:
+        f.create_dataset("x", data=np.arange(100.0), chunks=(10,))
+
+
+def _lzf(path):
     with h5py.File(path, "w", track_order=True) as f:
-        f.create_dataset("x", data=np.arange(100.0), compression="gzip")
+        f.create_dataset("x", data=np.arange(100.0), compression="lzf")
 
 
-def _h5py_dense_attrs(path):
+def _huge_attribute(path):
+    """Dense attributes, one of them past the heap's 4-KiB managed object
+    size: a huge object."""
     with h5py.File(path, "w", track_order=True) as f:
         for i in range(12):
             f.attrs[f"a{i}"] = np.int32(i)
+        f.attrs["big"] = np.arange(2000.0)
 
 
-def _h5py_dense_links(path):
-    with h5py.File(path, "w", track_order=True) as f:
-        for i in range(12):
-            f.create_dataset(f"x{i}", data=np.arange(3.0))
-
-
-def _h5py_default(path):
+def _bad_fletcher32(path):
     with h5py.File(path, "w") as f:
+        f.create_dataset("x", data=np.arange(64, dtype="i4"), chunks=(64,),
+                         fletcher32=True)
+        at = f["x"].id.get_chunk_info(0).byte_offset + 17
+    with open(path, "r+b") as fh:
+        fh.seek(at)
+        b = fh.read(1)
+        fh.seek(at)
+        fh.write(bytes([b[0] ^ 4]))
+
+
+def _user_block(path):
+    with h5py.File(path, "w", userblock_size=512) as f:
         f.create_dataset("x", data=np.arange(3.0))
-
-
-def _h5py_chunked(path):
-    with h5py.File(path, "w", track_order=True) as f:
-        f.create_dataset("x", data=np.arange(3.0), maxshape=(None,))
 
 
 def _corrupt_header(path):
@@ -456,11 +467,11 @@ def _corrupt_header(path):
 
 
 @pytest.mark.parametrize("make,word", [
-    (_h5py_gzip, "FILTER PIPELINE"),
-    (_h5py_dense_attrs, "DENSE ATTRIBUTE STORAGE"),
-    (_h5py_dense_links, "DENSE LINK STORAGE"),
-    (_h5py_default, "SYMBOL-TABLE GROUP"),
-    (_h5py_chunked, "CHUNKED DATA WITH CHUNKS WRITTEN"),
+    (_fixed_array_index, "CHUNK INDEX TYPE 3 .FIXED ARRAY"),
+    (_lzf, "FILTER 32000 .LZF"),
+    (_huge_attribute, "HUGE OBJECT"),
+    (_bad_fletcher32, "FLETCHER32 CHECKSUM MISMATCH"),
+    (_user_block, "NO HDF5 SUPERBLOCK AT OFFSET 0"),
     (_corrupt_header, "CHECKSUM MISMATCH"),
 ])
 def test_reader_refuses_what_it_does_not_parse(tmp_path, make, word):
@@ -519,7 +530,8 @@ def test_offsets_past_4gib(tmp_path):
         np.testing.assert_array_equal(f["tail"][0, -4:], 7.0)
     f = hdf5.open_file(path)
     try:
-        assert f["small"]._layout() > 2 ** 32
+        kind, addr = f["small"]._layout()
+        assert kind == "contiguous" and addr > 2 ** 32
         np.testing.assert_array_equal(f["small"][...], small)
         assert f["small"].attrs["units"] == b"K"
     finally:

@@ -7,7 +7,10 @@ finds neither ``jax`` nor any ``mpassit_tpu`` module in sys.modules, nor the
 JAX package's ``bench`` or ``tools`` (the production tool, the trace
 reader and the multi-rank dry run imported too, and the pipeline run once
 more sharded on a mesh of one, replicated and ring, and the port's
-diff_against_reference run on its output); and no source file of the port, nor chip_smoke.py,
+diff_against_reference run on its output, and the committed netCDF-C
+fixtures of tests/data/nc4_foreign read with h5py blocked through the
+port's HDF5 reader and target-file reader); and no source file of the
+port, nor chip_smoke.py,
 names jax, mpassit_tpu, bench or tools in an absolute import."""
 
 import ast
@@ -87,6 +90,17 @@ for decomp in ("replicate", "ring"):
     assert np.isfinite(art.result.u).all()
 out = os.path.join(d, "out.nc")
 assert diff_against_reference.main([out, out]) == 0
+sys.modules["h5py"] = None
+from mpassit_tpu_torch.grids.target import target_grid_from_file
+from mpassit_tpu_torch.io import hdf5
+fixtures = os.path.join(sys.argv[2], "tests", "data", "nc4_foreign")
+grid = target_grid_from_file(os.path.join(fixtures,
+                                          "wrf_lambert_target.nc"))
+assert grid.lat.shape == (100, 150) and np.isfinite(grid.sina).all()
+f = hdf5.open_file(os.path.join(fixtures, "mpas_diag_tiny.nc"))
+assert [n for n, ds in f.items() if ds[...].size]
+f.close()
+del sys.modules["h5py"]
 ell, _ = kernel_variants.build_problem(2000, 41, 25, os.path.join(d, "kv"))
 assert kernel_variants.run_variants(ell, "cpu", cols=128)["ok"]
 bound = [m for m in sys.modules
@@ -102,7 +116,7 @@ print("NO_JAX_OK")
 def test_pipeline_runs_without_importing_jax(tmp_path):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
-    proc = subprocess.run([sys.executable, "-c", SCRIPT, str(tmp_path)],
+    proc = subprocess.run([sys.executable, "-c", SCRIPT, str(tmp_path), REPO],
                           cwd=str(tmp_path), env=env, capture_output=True,
                           text=True, timeout=600)
     assert proc.returncode == 0, proc.stdout + proc.stderr
