@@ -11,8 +11,10 @@ one JSON line:
 - device: the card (name and power limit from nvidia-smi), torch and CUDA
   versions, whether h5py and ninja are importable and whether
   ``io/netcdf_c.available()`` finds a libnetcdf;
-- build: compiles the five sources of mpassit_tpu_torch/csrc/ with nvcc,
-  one process each, started together; for the two tensor-core sources,
+- build: compiles the five CUDA sources of mpassit_tpu_torch/csrc/ with
+  nvcc, one process each, and the HDF5 filter decoders
+  (csrc/h5_filters.cpp) with g++, all started together; for the two
+  tensor-core sources,
   onehot_apply.cu and ell_split_apply.cu, the registers, spills and shared
   memory of each kernel (the -Xptxas -v log) and the counts of HGMMA and
   HMMA (tensor-core) and FFMA instructions in their SASS (cuobjdump
@@ -63,9 +65,12 @@ one JSON line:
   MATRIX entry: mercator (450x265 at 12 km), polar stereographic (400x400
   at 15 km), regional lat-lon (700x270 at 0.1 degree), global lat-lon
   (1200x600 at 0.3 degree: nx not a multiple of 32, pole rows and the
-  seam) and the file target, the committed 150x100 36-km Lambert fixture
-  written by netCDF-C (tests/data/nc4_foreign, read by the port's own
-  HDF5 reader: superblock 2, dense attributes, deflated chunks); each grid
+  seam) and two file targets of tests/data/nc4_foreign, read by the
+  port's own HDF5 reader: the committed 150x100 36-km Lambert fixture
+  written by netCDF-C (superblock 2, dense attributes, deflated chunks)
+  and the 60x45 30-km one h5py wrote with libver "latest" (superblock 3,
+  extensible- and fixed-array chunk indexes, szip, LZF, scale-offset, a
+  huge attribute; the filter decoders built with g++); each grid
   cut to keep the phase within MATRIX_BUDGET_S (180 s), its cut in
   ``reduced``, weights cold. Per run: packed_apply's 3 launches (the
   pack, EDGE1, EDGE2) against those owed and no plain call, the pack's
@@ -73,7 +78,9 @@ one JSON line:
   within TOL_REL of the float64 evaluation of the check phase (Q4 only on
   Lambert), its stages and peak device memory. Then the committed
   fixtures read through the port's HDF5 reader against their manifest
-  (h5py's read, made with them), and the phase's seconds;
+  (h5py's read, made with them), the reader's decode MB/s per chunk index
+  and filter on the h5py fixture (``decode_mb_s``, beside nvidia-smi's
+  name and power limit), and the phase's seconds;
 - main_path_sharded: the CLI on the default route once more, unsharded
   (caches warm: this phase's yardstick), then with n_device_shards = -1
   as a world of one process over NCCL (MPASSIT_COORDINATOR,
@@ -88,10 +95,10 @@ one JSON line:
   more, the CLI as one process per card over NCCL on the replicate and
   ring namelists beside one unsharded process (the file write left out
   to keep the run's time; rank 0 dumps its results through
-  MPASSIT_DUMP_RESULT): replicate bit for bit the default route, ring
-  within 1e-6 of each variable's largest magnitude of it, with rank 0's
-  stages and every rank's wall and peak device memory; with one card a
-  line saying it was not run and why;
+  MPASSIT_DUMP_RESULT): the unsharded process and replicate bit for bit
+  the default route, ring within 1e-6 of each variable's largest
+  magnitude of it, with rank 0's stages and every rank's wall and peak
+  device memory; with one card a line saying it was not run and why;
 - main_path_profiled: the CLI on the default route, weights cache warm,
   once unprofiled and then with MPASSIT_PROFILE set: every variable must
   be bit for bit the unprofiled default run's; the trace must hold
@@ -229,6 +236,13 @@ MATRIX = {
         'file_target_grid = "{fixtures}/wrf_lambert_target.nc"'],
         "file target: the committed 150x100 36-km netCDF-C fixture < "
         "1800x1060 at 3 km"),
+    # written by h5py with libver "latest": extensible- and fixed-array
+    # chunk indexes, szip, LZF, scale-offset, a huge attribute
+    "file_latest": ([
+        "target_grid_type = 'file'",
+        'file_target_grid = "{fixtures}/wrf_lambert_latest.nc"'],
+        "file target: the committed 60x45 30-km h5py fixture < 1800x1060 "
+        "at 3 km"),
 }
 #: the namelist keys a MATRIX entry replaces
 GRID_KEYS = ("target_grid_type", "nx", "ny", "dx", "dy", "ref_lat",
@@ -1872,6 +1886,44 @@ def fixtures_check():
     return out
 
 
+def _median_s(fn, min_s):
+    """The median seconds of ``fn()`` over at least 3 calls and
+    ``min_s`` s; and its last result."""
+    times, end = [], time.perf_counter() + min_s
+    while len(times) < 3 or time.perf_counter() < end:
+        t0 = time.perf_counter()
+        out = fn()
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[len(times) // 2], out
+
+
+def decode_rates(name="wrf_lambert_latest.nc", min_s=0.2):
+    """The port's HDF5 reader on a committed fixture, in MB/s of decoded
+    bytes per chunk index and per filter: each chunked dataset read whole
+    (its index walked, every chunk read and decoded; a chunk a filter did
+    not shrink is stored raw and counted with it), summed over the
+    datasets that use it. Medians of at least 3 reads and ``min_s`` s per
+    dataset."""
+    from mpassit_tpu_torch.io import hdf5
+
+    totals = {}
+    r = hdf5.open_file(os.path.join(FIXTURES, name))
+    try:
+        for _, ds in r.items():
+            st = ds.storage()
+            if st["layout"] != "chunked" or not st["allocated"]:
+                continue
+            t, a = _median_s(lambda: ds[...], min_s)
+            for key in [f"index_{st['index']}"] + [
+                    f"filter_{f}" for f in st["filters"]]:
+                b, s = totals.get(key, (0, 0.0))
+                totals[key] = (b + a.nbytes, s + t)
+    finally:
+        r.close()
+    return {k: {"mb_s": b / s / 1e6, "bytes": b, "s": s}
+            for k, (b, s) in sorted(totals.items())}
+
+
 def matrix_phase(pipeline, nml, device, seed, reduced, arts, calls, packs,
                  split):
     """main_path_matrix: the CLI function on the main path's inputs and
@@ -1941,10 +1993,11 @@ def matrix_phase(pipeline, nml, device, seed, reduced, arts, calls, packs,
             mercator = (art, launches["packed_apply"], packs[0]["cols"])
         del art
     fixtures = fixtures_check()
+    rates = decode_rates()
     t_phase = time.perf_counter() - t_phase
     line = {"phase": "main_path_matrix", "fixtures_match_manifest":
-            fixtures, "t_phase_s": t_phase,
-            "budget_s": MATRIX_BUDGET_S}
+            fixtures, "decode_mb_s": rates, "nvidia_smi": nvidia_smi(),
+            "t_phase_s": t_phase, "budget_s": MATRIX_BUDGET_S}
     line["ok"] = ok_ = all(fixtures.values()) and t_phase <= MATRIX_BUDGET_S
     emit(line)
     if not ok_:
@@ -2041,11 +2094,22 @@ def main(argv=None) -> int:
     from mpassit_tpu_torch.ops import variant_kernels as vk
     from mpassit_tpu_torch.ops import write_wall as ww
 
+    from mpassit_tpu_torch.io import h5filters
+
     mods = (pk, ok, gk, ww, vk)
+
+    def timed_build(fn):
+        t = time.perf_counter()
+        fn()
+        return time.perf_counter() - t
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(mods)) as ex:
-        for f in [ex.submit(m.build) for m in mods]:
+    with ThreadPoolExecutor(len(mods) + 1) as ex:
+        futures = [ex.submit(m.build) for m in mods]
+        h5_build = ex.submit(timed_build, h5filters.build)
+        for f in futures:
             f.result()
+        h5_build_s = h5_build.result()
     build_s = time.perf_counter() - t0
     for m in mods:
         for line in m.BUILD_INFO["log"].splitlines():
@@ -2059,7 +2123,10 @@ def main(argv=None) -> int:
     emit({"phase": "build", "build_s": build_s,
           "sources": [{"source": os.path.relpath(m.SOURCE, HERE),
                        "so": os.path.relpath(m.BUILD_INFO["so"], HERE),
-                       "nvcc_s": m.BUILD_INFO["seconds"]} for m in mods],
+                       "nvcc_s": m.BUILD_INFO["seconds"]} for m in mods]
+          + [{"source": os.path.relpath(h5filters.SOURCE, HERE),
+              "so": os.path.relpath(h5filters.library_path(), HERE),
+              "gxx_s": h5_build_s}],
           **tc})
     for src, info in tc.items():
         sass = info["sass_instructions"]

@@ -30,20 +30,26 @@ offset; the metadata goes after the data and the superblock at offset 0
 when the file is closed.
 
 The reader (``open_file(path, "r")``) reads, through ``mmap``, what this
-writer writes and what netCDF-C (4.9, HDF5 1.10-1.14) and h5py write by
-default: superblocks 0-3; old-style (symbol-table) groups and new-style
-groups with compact or dense links; compact or dense attributes (fractal
-heaps, v2 B-trees), variable-length strings; compact, contiguous and
-chunked data (v1 B-tree chunk index, layout 4's single-chunk and implicit
-indexes) through the deflate, shuffle and Fletcher32 filters, big-endian
-data as the dataset's own dtype, chunks never written as the fill value.
-Anything else raises ``FatalError`` naming it: layout 4's fixed-array,
-extensible-array and v2-B-tree chunk indexes (``libver="latest"`` writers
-of chunked data), any other filter (szip, n-bit, scale-offset, plugins),
-huge fractal-heap objects, filtered heap blocks, shared messages,
-external or virtual storage, a superblock not at offset 0, offsets not of
-8 bytes. Both expose the small part of h5py's interface that
-``NetCDF4File`` calls.
+writer writes and the root group of what netCDF-C (4.9, HDF5 1.10-1.14)
+and h5py write, as h5py reads it: superblocks 0-3; old-style
+(symbol-table) groups and new-style groups with compact or dense links;
+compact or dense attributes (fractal heaps, v2 B-trees; huge heap
+objects, direct or through the heap's own v2 B-tree), variable-length
+strings; compact, contiguous and chunked data under every chunk index
+(the v1 B-tree; layout 4's single chunk, implicit, fixed array,
+extensible array and v2 B-tree, the indexes of ``libver="latest"``
+writers), through the deflate, shuffle, Fletcher32, szip, n-bit,
+scale-offset and LZF filters (the last four in ``io/h5filters.py``;
+szip and LZF are C++ built with g++ at their first use), integers of
+fewer bits than their size as HDF5 converts them, big-endian data as the
+dataset's own dtype, chunks never written as the fill value; every
+checksum is verified. Anything else raises ``FatalError`` naming it:
+shared messages, external or virtual storage, plugin filters other than
+LZF (zstd, blosc, bzip2, ...), filtered heap blocks, n-bit on compound or
+array types, floating-point types of fewer bits than their size, edge
+chunks stored unfiltered, a superblock not at offset 0 (a user block),
+offsets not of 8 bytes; groups below the root are not read. Both expose
+the small part of h5py's interface that ``NetCDF4File`` calls.
 """
 
 from __future__ import annotations
@@ -58,6 +64,7 @@ import zlib
 import numpy as np
 
 from ..errors import FatalError
+from . import h5filters
 
 MAGIC = b"\x89HDF\r\n\x1a\n"
 UNDEF = 0xFFFF_FFFF_FFFF_FFFF
@@ -567,8 +574,10 @@ class _Writer:
 # III.G); compact or dense attributes (attribute info message, v2 B-trees
 # of types 8 and 9) in attribute messages of versions 1-3; compact,
 # contiguous and chunked data (layout message versions 1-4; chunks under a
-# v1 B-tree of type 1, or layout 4's single-chunk and implicit indexes),
-# through the deflate, shuffle and Fletcher32 filters.
+# v1 B-tree of type 1, or layout 4's single-chunk, implicit, fixed-array,
+# extensible-array and v2-B-tree (types 10 and 11) indexes: appendix C),
+# through the filters of _FILTERS_READ; huge fractal-heap objects (v2
+# B-trees of types 1 and 2).
 
 def _u(b, p, n):
     """The little-endian unsigned integer of ``n`` bytes at ``p``."""
@@ -588,11 +597,16 @@ def _log2(n):
 _FILTER_NAMES = {1: "DEFLATE", 2: "SHUFFLE", 3: "FLETCHER32", 4: "SZIP",
                  5: "N-BIT", 6: "SCALE-OFFSET", 32000: "LZF",
                  32001: "BLOSC", 32004: "LZ4", 32008: "BITSHUFFLE",
-                 32013: "ZFP", 32015: "ZSTD", 32017: "SZ"}
-_FILTERS_READ = (1, 2, 3)
-#: layout 4's chunk index types
-_CHUNK_INDEX = {1: "SINGLE CHUNK", 2: "IMPLICIT", 3: "FIXED ARRAY",
-                4: "EXTENSIBLE ARRAY", 5: "V2 B-TREE"}
+                 32013: "ZFP", 32015: "ZSTD", 32017: "SZ", 307: "BZIP2"}
+#: the decoders of io/h5filters.py, by filter id
+_FILTER_DECODERS = {4: h5filters.szip, 5: h5filters.nbit,
+                    6: h5filters.scale_offset, 32000: h5filters.lzf}
+_FILTERS_READ = (1, 2, 3, *_FILTER_DECODERS)
+#: the most bytes a filter writes for n bytes in, where that is more than
+#: n: HDF5's output buffers for deflate (ceil(1.001 n) + 12) and szip (n
+#: + 4, its size header), Fletcher32's checksum, scale-offset's header
+_GROWTH = {1: lambda n: n + n // 1000 + 13, 3: lambda n: n + 4,
+           4: lambda n: n + 4, 6: lambda n: n + 21}
 
 
 def fletcher32(data) -> int:
@@ -628,6 +642,67 @@ def _unshuffle(data, size):
         cols[:, k] = planes[k]
     out[n * size:] = np.frombuffer(data, np.uint8, offset=n * size)
     return out
+
+
+def _pipeline(m, where):
+    """[(filter id, client data)] of a filter pipeline message (IV.A.2.l),
+    in the order the filters were applied when writing; a filter this
+    module does not decode raises, naming it."""
+    ver, n = m[0], m[1]
+    p = 8 if ver == 1 else 2
+    out = []
+    for _ in range(n):
+        fid = struct.unpack_from("<H", m, p)[0]
+        p += 2
+        nlen = 0
+        if ver == 1 or fid >= 256:
+            nlen = struct.unpack_from("<H", m, p)[0]
+            p += 2
+        _, ncd = struct.unpack_from("<HH", m, p)
+        p += 4 + (nlen + (-nlen % 8) if ver == 1 else nlen)
+        cd = struct.unpack_from(f"<{ncd}I", m, p)
+        p += 4 * ncd + (4 if ver == 1 and ncd % 2 else 0)
+        if fid not in _FILTERS_READ:
+            raise FatalError(
+                f"{where}: FILTER {fid} ({_FILTER_NAMES.get(fid, 'UNKNOWN')}) "
+                "NOT SUPPORTED")
+        out.append((fid, cd))
+    return out
+
+
+def _unfilter(raw, filters, mask, where, itemsize, nbytes):
+    """Bytes through the filters of a pipeline not masked off, last
+    first; ``where`` names them in errors, ``itemsize`` is the shuffle's
+    element size where its client data gives none, ``nbytes`` the
+    unfiltered size, which bounds what each decoder may make."""
+    limits = [nbytes]
+    for fid, _ in filters[:-1]:
+        limits.append(_GROWTH.get(fid, lambda n: n)(limits[-1]))
+    data = raw
+    for i in range(len(filters) - 1, -1, -1):
+        if mask >> i & 1:
+            continue
+        fid, cd = filters[i]
+        if fid in _FILTER_DECODERS:
+            data = _FILTER_DECODERS[fid](data, cd, where, limits[i])
+        elif fid == 1:
+            try:
+                data = zlib.decompress(data)
+            except zlib.error as e:
+                raise FatalError(f"{where}: FILTER 1 (DEFLATE): {e}") \
+                    from None
+        elif fid == 2:
+            data = _unshuffle(data, cd[0] if cd else itemsize)
+        else:
+            body, stored = data[:-4], _u(data, len(data) - 4, 4)
+            want = fletcher32(body)
+            # HDF5 1.6 stored it with the bytes of each half swapped
+            swapped = ((want & 0xFF00FF00) >> 8) | ((want & 0x00FF00FF)
+                                                    << 8)
+            if stored not in (want, swapped):
+                raise FatalError(f"{where}: FLETCHER32 CHECKSUM MISMATCH")
+            data = body
+    return data
 
 
 class _Object:
@@ -710,6 +785,10 @@ def _decode_type(path, b, p=0):
     size = struct.unpack_from("<I", b, p + 4)[0]
     p += 8
     order = ">" if bits & 1 else "<"
+    if cls in (0, 1) and size not in ((1, 2, 4, 8), (2, 4, 8))[cls]:
+        kind = ("INTEGER", "FLOATING-POINT")[cls]
+        raise FatalError(f"{path}: {kind} DATATYPE OF {size} BYTES NOT "
+                         "SUPPORTED")
     if cls == 0:
         return np.dtype(f"{order}{'i' if bits & 8 else 'u'}{size}"), p + 4
     if cls == 1:
@@ -729,7 +808,7 @@ def _decode_type(path, b, p=0):
         for _ in range(bits & 0xFFFF):
             e = b.index(b"\0", p)
             names.append(b[p:e].decode())
-            if ver == 3:
+            if ver >= 3:             # versions 3 and 4: packed names
                 p = e + 1
                 w = next(k for k in (1, 2, 3, 4) if size < 1 << (8 * k))
                 offsets.append(int.from_bytes(b[p:p + w], "little"))
@@ -762,6 +841,166 @@ def _decode_space(b):
     return tuple(struct.unpack_from(f"<{rank}Q", b, p)) if rank else ()
 
 
+def _decode_maxshape(b):
+    """The maximum dimensions of a simple dataspace (the dimensions where
+    none are stored), None for an unlimited one."""
+    rank, p = b[1], 8 if b[0] == 1 else 4
+    if not b[2] & 1:
+        return _decode_space(b)
+    dims = struct.unpack_from(f"<{rank}Q", b, p + 8 * rank)
+    return tuple(None if d == UNDEF else d for d in dims)
+
+
+def _checked(f, start, end, what):
+    """Verify the Jenkins lookup3 checksum that follows ``[start, end)``."""
+    if struct.unpack_from("<I", f._buf, end)[0] != lookup3(
+            bytes(f._buf[start:end])):
+        raise FatalError(f"{f.path}: {what} AT {start}: CHECKSUM MISMATCH")
+
+
+def _signature(f, addr, sig, what):
+    """Check the 4-byte signature ``sig`` of a structure at ``addr``."""
+    if bytes(f._buf[addr:addr + 4]) != sig:
+        raise FatalError(f"{f.path}: NO {what} AT {addr}")
+
+
+def _page_set(bitmap, k):
+    """Bit ``k`` of a page-init bitmap (most significant bit first)."""
+    return bool(bitmap[k // 8] & (0x80 >> (k % 8)))
+
+
+def _fixed_array(f, addr):
+    """The elements of the fixed array at ``addr`` (appendix C, "Fixed
+    Array Index"; HDF5's H5FA): (raw element bytes in index order,
+    element size, filtered). Its data block holds the elements, or past
+    2**page-bits of them a page-init bitmap and pages of its own; a page
+    never initialized holds undefined addresses."""
+    buf = f._buf
+    _signature(f, addr, b"FAHD", "FIXED ARRAY HEADER")
+    client, esize, page_bits = buf[addr + 5], buf[addr + 6], buf[addr + 7]
+    nelmts, dblk = struct.unpack_from("<QQ", buf, addr + 8)
+    _checked(f, addr, addr + 24, "FIXED ARRAY HEADER")
+    if dblk == UNDEF:
+        return b"", esize, client == 1
+    _signature(f, dblk, b"FADB", "FIXED ARRAY DATA BLOCK")
+    p = dblk + 14
+    page_n = 1 << page_bits
+    if nelmts <= page_n:
+        _checked(f, dblk, p + nelmts * esize, "FIXED ARRAY DATA BLOCK")
+        return bytes(buf[p:p + nelmts * esize]), esize, client == 1
+    npages = -(-nelmts // page_n)
+    init = bytes(buf[p:p + (npages + 7) // 8])
+    p += len(init)
+    _checked(f, dblk, p, "FIXED ARRAY DATA BLOCK")
+    p += 4
+    parts = []
+    for k in range(npages):
+        n = min(page_n, nelmts - k * page_n)
+        if _page_set(init, k):
+            _checked(f, p, p + n * esize, "FIXED ARRAY PAGE")
+            parts.append(bytes(buf[p:p + n * esize]))
+        else:
+            parts.append(b"\xff" * (n * esize))
+        p += page_n * esize + 4
+    return b"".join(parts), esize, client == 1
+
+
+def _extensible_array(f, addr):
+    """The elements of the extensible array at ``addr`` (appendix C,
+    "Extensible Array Index"; HDF5's H5EA), up to its largest index set:
+    (raw element bytes in index order, element size, filtered). The
+    index block holds the
+    first elements, the data blocks of the first super blocks and the
+    addresses of the others; super block ``u`` has 2**(u//2) data blocks
+    of 2**((u+1)//2) times the minimum elements, paged (a page-init bitmap
+    per data block in the super block) past 2**page-bits elements."""
+    buf = f._buf
+    _signature(f, addr, b"EAHD", "EXTENSIBLE ARRAY HEADER")
+    (client, esize, max_bits, idx_elmts, dblk_min, sblk_min,
+     page_bits) = buf[addr + 5:addr + 12]
+    max_set = struct.unpack_from("<Q", buf, addr + 44)[0]
+    iblock = _u(buf, addr + 60, 8)
+    _checked(f, addr, addr + 68, "EXTENSIBLE ARRAY HEADER")
+    out = bytearray(b"\xff" * (max_set * esize))
+    if iblock == UNDEF or not max_set:
+        return bytes(out), esize, client == 1
+    arr_off = (max_bits + 7) // 8
+    page_n = 1 << page_bits
+
+    def place(first, raw):
+        n = max(min(len(raw) // esize, max_set - first), 0)
+        out[first * esize:(first + n) * esize] = raw[:n * esize]
+
+    def data_block(at, nel, first, init, bit0):
+        _signature(f, at, b"EADB", "EXTENSIBLE ARRAY DATA BLOCK")
+        p = at + 14 + arr_off
+        if nel <= page_n:
+            _checked(f, at, p + nel * esize, "EXTENSIBLE ARRAY DATA BLOCK")
+            place(first, bytes(buf[p:p + nel * esize]))
+            return
+        if init is None:
+            raise FatalError(f"{f.path}: EXTENSIBLE ARRAY AT {addr}: A PAGED "
+                             "DATA BLOCK IN THE INDEX BLOCK NOT SUPPORTED")
+        _checked(f, at, p, "EXTENSIBLE ARRAY DATA BLOCK")
+        p += 4
+        for k in range(nel // page_n):
+            if _page_set(init, bit0 + k):
+                _checked(f, p, p + page_n * esize, "EXTENSIBLE ARRAY PAGE")
+                place(first + k * page_n, bytes(buf[p:p + page_n * esize]))
+            p += page_n * esize + 4
+
+    _signature(f, iblock, b"EAIB", "EXTENSIBLE ARRAY INDEX BLOCK")
+    p = iblock + 14
+    place(0, bytes(buf[p:p + idx_elmts * esize]))
+    p += idx_elmts * esize
+    nsblks = 1 + max_bits - _log2(dblk_min)
+    ib_sblks = 2 * _log2(sblk_min)
+    dblk_addrs = struct.unpack_from(f"<{2 * (sblk_min - 1)}Q", buf, p)
+    p += 16 * (sblk_min - 1)
+    sblk_addrs = struct.unpack_from(f"<{nsblks - ib_sblks}Q", buf, p)
+    p += 8 * (nsblks - ib_sblks)
+    _checked(f, iblock, p, "EXTENSIBLE ARRAY INDEX BLOCK")
+    first, dblk_no = idx_elmts, 0
+    for u in range(nsblks):
+        if first >= max_set:
+            break
+        nd, dn = 1 << (u // 2), (1 << ((u + 1) // 2)) * dblk_min
+        if u < ib_sblks:
+            addrs, init, npages = dblk_addrs[dblk_no:dblk_no + nd], None, 0
+        else:
+            s = sblk_addrs[u - ib_sblks]
+            if s == UNDEF:
+                first, dblk_no = first + nd * dn, dblk_no + nd
+                continue
+            _signature(f, s, b"EASB", "EXTENSIBLE ARRAY SUPER BLOCK")
+            q = s + 14 + arr_off
+            npages = dn // page_n if dn > page_n else 0
+            init = bytes(buf[q:q + nd * ((npages + 7) // 8)])
+            q += len(init)
+            addrs = struct.unpack_from(f"<{nd}Q", buf, q)
+            _checked(f, s, q + 8 * nd, "EXTENSIBLE ARRAY SUPER BLOCK")
+        for d, a in enumerate(addrs):
+            if a != UNDEF and first + d * dn < max_set:
+                data_block(a, dn, first + d * dn, init, d * npages)
+        first, dblk_no = first + nd * dn, dblk_no + nd
+    return bytes(out), esize, client == 1
+
+
+def _chunk_elements(raw, esize, filtered):
+    """Addresses, stored sizes and filter masks of chunk index elements
+    (an address; filtered: an address, the stored size in the bytes left
+    over, a 4-byte filter mask)."""
+    n = len(raw) // esize
+    a = np.frombuffer(raw, np.uint8, count=n * esize).reshape(n, esize)
+    addr = a[:, :8].copy().view("<u8").ravel()
+    if not filtered:
+        return addr, None, np.zeros(n, np.uint32)
+    size = np.zeros(n, np.uint64)
+    for i in range(esize - 12):
+        size |= a[:, 8 + i].astype(np.uint64) << np.uint64(8 * i)
+    return addr, size, a[:, esize - 4:].copy().view("<u4").ravel()
+
+
 class _FractalHeap:
     """A fractal heap (III.G): its header, and its direct blocks found
     through the doubling table of the root (a direct block, or an
@@ -770,22 +1009,24 @@ class _FractalHeap:
 
     def __init__(self, f, addr):
         self.f, buf, path = f, f._buf, f.path
-        if bytes(buf[addr:addr + 4]) != b"FRHP":
-            raise FatalError(f"{path}: NO FRACTAL HEAP HEADER AT {addr}")
+        _signature(f, addr, b"FRHP", "FRACTAL HEAP HEADER")
         self.id_len, filt_len, self.flags = struct.unpack_from(
             "<HHB", buf, addr + 5)
-        if filt_len:
-            raise FatalError(f"{path}: FRACTAL HEAP AT {addr}: FILTERED "
-                             "(COMPRESSED) HEAP BLOCKS NOT SUPPORTED")
-        max_man = struct.unpack_from("<I", buf, addr + 10)[0]
+        max_man, _, self.huge_bt = struct.unpack_from("<IQQ", buf, addr + 10)
         (self.width, start, max_direct, self.max_heap_bits, _, root,
          self.root_rows) = struct.unpack_from("<HQQHHQH", buf, addr + 110)
-        end = addr + 142
-        if struct.unpack_from("<I", buf, end)[0] != lookup3(
-                bytes(buf[addr:end])):
-            raise FatalError(f"{path}: FRACTAL HEAP AT {addr}: CHECKSUM "
-                             "MISMATCH")
+        # a filtered heap: the root direct block's filtered size and mask,
+        # then the I/O filter pipeline message
+        end = addr + 142 + (12 + filt_len if filt_len else 0)
+        _checked(f, addr, end, "FRACTAL HEAP")
         self.addr = addr
+        self.filters = (_pipeline(bytes(buf[addr + 154:end]),
+                                  f"{path}: FRACTAL HEAP AT {addr}")
+                        if filt_len else None)
+        if self.filters and root != UNDEF:
+            raise FatalError(f"{path}: FRACTAL HEAP AT {addr}: FILTERED "
+                             "(COMPRESSED) HEAP BLOCKS NOT SUPPORTED")
+        self._huge = None
         self.off_size = (self.max_heap_bits + 7) // 8
         self.len_size = min((_log2(max_direct) + 7) // 8,
                             _enc_size(max_man))
@@ -805,9 +1046,7 @@ class _FractalHeap:
 
     def _direct(self, addr, off, size):
         buf, path = self.f._buf, self.f.path
-        if bytes(buf[addr:addr + 4]) != b"FHDB":
-            raise FatalError(f"{path}: NO FRACTAL HEAP DIRECT BLOCK AT "
-                             f"{addr}")
+        _signature(self.f, addr, b"FHDB", "FRACTAL HEAP DIRECT BLOCK")
         if self.flags & 2:
             at = addr + 13 + self.off_size
             raw = bytearray(buf[addr:addr + size])
@@ -819,10 +1058,8 @@ class _FractalHeap:
         self.blocks.append((off, addr, size))
 
     def _indirect(self, addr, off, nrows):
-        buf, path = self.f._buf, self.f.path
-        if bytes(buf[addr:addr + 4]) != b"FHIB":
-            raise FatalError(f"{path}: NO FRACTAL HEAP INDIRECT BLOCK AT "
-                             f"{addr}")
+        buf = self.f._buf
+        _signature(self.f, addr, b"FHIB", "FRACTAL HEAP INDIRECT BLOCK")
         p = addr + 13 + self.off_size
         children = []
         for r in range(nrows):
@@ -832,10 +1069,7 @@ class _FractalHeap:
                 if child != UNDEF:
                     children.append((r, child, off))
                 off += self.row_size[r]
-        if struct.unpack_from("<I", buf, p)[0] != lookup3(
-                bytes(buf[addr:p])):
-            raise FatalError(f"{path}: FRACTAL HEAP INDIRECT BLOCK AT "
-                             f"{addr}: CHECKSUM MISMATCH")
+        _checked(self.f, addr, p, "FRACTAL HEAP INDIRECT BLOCK")
         for r, child, at in children:
             if r < self.max_direct_rows:
                 self._direct(child, at, self.row_size[r])
@@ -854,9 +1088,7 @@ class _FractalHeap:
             n = ((hid[0] & 0x0F) << 8 | hid[1]) + 1
             return bytes(hid[2:2 + n])
         if kind == 1:
-            raise FatalError(f"{path}: FRACTAL HEAP AT {self.addr}: HUGE "
-                             "OBJECT (STORED OUTSIDE THE HEAP'S BLOCKS) "
-                             "NOT SUPPORTED")
+            return self._huge_object(hid)
         if kind:
             raise FatalError(f"{path}: FRACTAL HEAP AT {self.addr}: HEAP ID "
                              f"OF TYPE {kind}")
@@ -869,19 +1101,51 @@ class _FractalHeap:
         start, addr, _ = self.blocks[i]
         return bytes(self.f._buf[addr + off - start:addr + off - start + n])
 
+    def _huge_object(self, hid):
+        """A huge object, stored outside the heap's blocks (III.G): its
+        address and length (filtered: also its filter mask and size) in
+        the heap ID where the ID is wide enough, else in the record of the
+        heap's v2 B-tree (type 1, or 2 filtered) under the ID's key."""
+        where = f"{self.f.path}: FRACTAL HEAP AT {self.addr}: HUGE OBJECT"
+        filtered = self.filters is not None
+        if self.id_len - 1 >= (28 if filtered else 16):       # direct
+            at, n = _u(hid, 1, 8), _u(hid, 9, 8)
+            mask = _u(hid, 17, 4) if filtered else 0
+            size = _u(hid, 21, 8) if filtered else 0
+        else:
+            if self._huge is None:
+                btype, recs = _btree2_records(self.f, self.huge_bt)
+                if btype != (2 if filtered else 1):
+                    raise FatalError(f"{where}: INDEX OF V2 B-TREE TYPE "
+                                     f"{btype}")
+                # type 1: address, length, ID; type 2: address, length,
+                # filter mask, unfiltered size, ID
+                self._huge = {
+                    _u(r, len(r) - 8, 8): (_u(r, 0, 8), _u(r, 8, 8),
+                                           _u(r, 16, 4) if filtered else 0,
+                                           _u(r, 20, 8) if filtered else 0)
+                    for r in recs}
+            key = _u(hid, 1, min(self.id_len - 1, 8))
+            if key not in self._huge:
+                raise FatalError(f"{where}: NO RECORD OF ID {key}")
+            at, n, mask, size = self._huge[key]
+        raw = bytes(self.f._buf[at:at + n])
+        if len(raw) != n:
+            raise FatalError(f"{where}: {n} BYTES AT {at} PAST THE FILE'S "
+                             "END")
+        return (_unfilter(raw, self.filters, mask, where, 1, size)
+                if filtered else raw)
+
 
 def _btree2_records(f, addr):
     """Every record of the v2 B-tree at ``addr`` (III.A.2), in key order:
     (type, [record bytes])."""
-    buf, path = f._buf, f.path
-    if bytes(buf[addr:addr + 4]) != b"BTHD":
-        raise FatalError(f"{path}: NO V2 B-TREE HEADER AT {addr}")
+    buf = f._buf
+    _signature(f, addr, b"BTHD", "V2 B-TREE HEADER")
     btype = buf[addr + 5]
     node_size, rsize, depth = struct.unpack_from("<IHH", buf, addr + 6)
     root, nroot = struct.unpack_from("<QH", buf, addr + 16)
-    if struct.unpack_from("<I", buf, addr + 34)[0] != lookup3(
-            bytes(buf[addr:addr + 34])):
-        raise FatalError(f"{path}: V2 B-TREE AT {addr}: CHECKSUM MISMATCH")
+    _checked(f, addr, addr + 34, "V2 B-TREE")
     # H5B2__hdr_init: the largest record count of a node at each depth and
     # of the subtree under it, and the bytes that encode them
     max_nrec = [(node_size - 10) // rsize]
@@ -896,9 +1160,7 @@ def _btree2_records(f, addr):
     out = []
 
     def node(at, nrec, d):
-        sig = b"BTLF" if d == 0 else b"BTIN"
-        if bytes(buf[at:at + 4]) != sig:
-            raise FatalError(f"{path}: NO V2 B-TREE NODE AT {at}")
+        _signature(f, at, b"BTIN" if d else b"BTLF", "V2 B-TREE NODE")
         recs = [bytes(buf[at + 6 + i * rsize:at + 6 + (i + 1) * rsize])
                 for i in range(nrec)]
         p = at + 6 + nrec * rsize
@@ -907,9 +1169,7 @@ def _btree2_records(f, addr):
             for _ in range(nrec + 1):
                 kids.append((_u(buf, p, 8), _u(buf, p + 8, nrec_size)))
                 p += 8 + nrec_size + (cum_size[d - 1] if d > 1 else 0)
-        if struct.unpack_from("<I", buf, p)[0] != lookup3(bytes(buf[at:p])):
-            raise FatalError(f"{path}: V2 B-TREE NODE AT {at}: CHECKSUM "
-                             "MISMATCH")
+        _checked(f, at, p, "V2 B-TREE NODE")
         for i, r in enumerate(recs):
             if d:
                 node(*kids[i], d - 1)
@@ -926,12 +1186,11 @@ def _btree1_entries(f, addr, key_size):
     """(key bytes, child address) of every leaf entry of the v1 B-tree at
     ``addr`` (III.A.1), in key order: symbol table nodes (type 0) or
     chunks (type 1)."""
-    buf, path = f._buf, f.path
+    buf = f._buf
     out, todo = [], [addr]
     while todo:
         at = todo.pop()
-        if bytes(buf[at:at + 4]) != b"TREE":
-            raise FatalError(f"{path}: NO V1 B-TREE NODE AT {at}")
+        _signature(f, at, b"TREE", "V1 B-TREE NODE")
         level, used = buf[at + 5], struct.unpack_from("<H", buf, at + 6)[0]
         p = at + 24
         entries = []
@@ -959,6 +1218,16 @@ class _RDataset(Dataset):
         if not isinstance(self.dtype, np.dtype):
             raise FatalError(f"{path}: {name}: VARIABLE-LENGTH DATA NOT "
                              "SUPPORTED")
+        # a number held in fewer bits than its size: (bit offset, precision)
+        self._bits = None
+        if dtype[0] & 0x0F in (0, 1):
+            bits = struct.unpack_from("<HH", dtype, 8)
+            if bits != (0, 8 * self.dtype.itemsize):
+                self._bits = bits
+                if dtype[0] & 0x0F:
+                    raise FatalError(self._where(
+                        f"FLOATING-POINT DATATYPE OF PRECISION {bits[1]} AT "
+                        f"BIT OFFSET {bits[0]} NOT SUPPORTED"))
         self.attrs = f._attrs(obj)
 
     @property
@@ -968,13 +1237,29 @@ class _RDataset(Dataset):
             return [[] for _ in self.shape]
         return [[self._f._by_addr(a) for a in refs] for refs in dl]
 
+    def storage(self) -> dict:
+        """How the data is stored, for reports: ``layout`` ("compact",
+        "contiguous" or "chunked"), ``index`` (a chunked dataset's chunk
+        index: "btree1", "single", "implicit", "farray", "earray" or
+        "btree2"; else None), ``filters`` (the pipeline's filter names, in
+        the order they were applied when writing) and ``allocated``
+        (False where no data was ever written)."""
+        lay = self._layout()
+        chunked = lay[0] == "chunked"
+        return {"layout": lay[0], "index": lay[1] if chunked else None,
+                "filters": [_FILTER_NAMES[fid].lower()
+                            for fid, _ in self._filters()],
+                "allocated": lay[0] == "compact"
+                or (lay[2] if chunked else lay[1]) != UNDEF}
+
     def _where(self, what):
         return f"{self._f.path}: {self.name}: {what}"
 
     def _layout(self):
-        """("compact", bytes), ("contiguous", address), ("chunked",
-        index, address, chunk shape) or ("implicit" | "single", address,
-        chunk shape[, filtered size, filter mask])."""
+        """("compact", bytes), ("contiguous", address) or ("chunked",
+        index, address, chunk shape, single chunk's (filtered size, filter
+        mask)); the index is "btree1", "single", "implicit", "farray",
+        "earray" or "btree2"."""
         (_, _, _, lay), = self._obj.find(0x08)
         ver, rank = lay[0], len(self.shape)
         if ver in (1, 2):
@@ -989,7 +1274,7 @@ class _RDataset(Dataset):
                 return "compact", lay[p + 4:p + 4 + n]
             if cls == 1:
                 return "contiguous", addr
-            return "chunked", "btree1", addr, dims[:rank]
+            return "chunked", "btree1", addr, dims[:rank], None
         if ver not in (3, 4):
             raise FatalError(self._where(f"DATA LAYOUT MESSAGE VERSION {ver}"
                                          " NOT SUPPORTED"))
@@ -998,29 +1283,36 @@ class _RDataset(Dataset):
             n = struct.unpack_from("<H", lay, 2)[0]
             return "compact", lay[4:4 + n]
         if cls == 1:
+            if self._obj.find(0x07):
+                raise FatalError(self._where("EXTERNAL STORAGE (EXTERNAL "
+                                             "DATA FILES) NOT SUPPORTED"))
             return "contiguous", _u(lay, 2, 8)
         if cls == 2 and ver == 3:
             nd = lay[2]
             return ("chunked", "btree1", _u(lay, 3, 8),
-                    struct.unpack_from(f"<{nd}I", lay, 11)[:rank])
+                    struct.unpack_from(f"<{nd}I", lay, 11)[:rank], None)
         if cls == 2:
             flags, nd, w = lay[2], lay[3], lay[4]
+            if flags & 1 and self._obj.find(0x0B):
+                raise FatalError(self._where(
+                    "PARTIAL EDGE CHUNKS STORED UNFILTERED NOT SUPPORTED"))
             dims = [_u(lay, 5 + i * w, w) for i in range(nd)][:rank]
             p = 5 + nd * w
             index = lay[p]
-            p += 1
-            if index == 1:                     # single chunk
-                size = mask = None
-                if flags & 2:
-                    size, mask = _u(lay, p, 8), _u(lay, p + 8, 4)
-                    p += 12
-                return "single", _u(lay, p, 8), dims, size, mask
-            if index == 2:                     # implicit: no index
-                return "implicit", _u(lay, p, 8), dims
-            raise FatalError(self._where(
-                f"CHUNK INDEX TYPE {index} "
-                f"({_CHUNK_INDEX.get(index, 'UNKNOWN')}, DATA LAYOUT "
-                "VERSION 4) NOT SUPPORTED"))
+            # the index's parameters: a filtered single chunk's size and
+            # mask; page bits (fixed array); five bytes (extensible
+            # array); node size, split and merge percents (v2 B-tree)
+            p += 1 + {1: 12 if flags & 2 else 0, 2: 0, 3: 1, 4: 5,
+                      5: 6}.get(index, 0)
+            single = ((_u(lay, p - 12, 8), _u(lay, p - 4, 4))
+                      if index == 1 and flags & 2 else None)
+            kinds = {1: "single", 2: "implicit", 3: "farray", 4: "earray",
+                     5: "btree2"}
+            if index not in kinds:
+                raise FatalError(self._where(
+                    f"CHUNK INDEX TYPE {index} (DATA LAYOUT VERSION 4) NOT "
+                    "SUPPORTED"))
+            return "chunked", kinds[index], _u(lay, p, 8), dims, single
         kind = {3: "VIRTUAL"}.get(cls, f"CLASS {cls}")
         raise FatalError(self._where(f"{kind} LAYOUT NOT SUPPORTED"))
 
@@ -1028,54 +1320,8 @@ class _RDataset(Dataset):
         """[(filter id, client data)] of the filter pipeline message, in
         the order they were applied when writing."""
         msgs = self._obj.find(0x0B)
-        if not msgs:
-            return []
-        m = msgs[0][3]
-        ver, n = m[0], m[1]
-        p = 8 if ver == 1 else 2
-        out = []
-        for _ in range(n):
-            fid = struct.unpack_from("<H", m, p)[0]
-            p += 2
-            nlen = 0
-            if ver == 1 or fid >= 256:
-                nlen = struct.unpack_from("<H", m, p)[0]
-                p += 2
-            _, ncd = struct.unpack_from("<HH", m, p)
-            p += 4 + (nlen + (-nlen % 8) if ver == 1 else nlen)
-            cd = struct.unpack_from(f"<{ncd}I", m, p)
-            p += 4 * ncd + (4 if ver == 1 and ncd % 2 else 0)
-            if fid not in _FILTERS_READ:
-                raise FatalError(self._where(
-                    f"FILTER {fid} ({_FILTER_NAMES.get(fid, 'UNKNOWN')}) "
-                    "NOT SUPPORTED"))
-            out.append((fid, cd))
-        return out
-
-    def _unfilter(self, raw, filters, mask):
-        """A chunk's bytes through the filters not masked off, last
-        first."""
-        data = raw
-        for i in range(len(filters) - 1, -1, -1):
-            if mask >> i & 1:
-                continue
-            fid, cd = filters[i]
-            if fid == 1:
-                data = zlib.decompress(data)
-            elif fid == 2:
-                data = _unshuffle(data, cd[0] if cd else
-                                  self.dtype.itemsize)
-            else:
-                body, stored = data[:-4], _u(data, len(data) - 4, 4)
-                want = fletcher32(body)
-                # HDF5 1.6 stored it with the bytes of each half swapped
-                swapped = ((want & 0xFF00FF00) >> 8) | ((want & 0x00FF00FF)
-                                                        << 8)
-                if stored not in (want, swapped):
-                    raise FatalError(self._where(
-                        "FLETCHER32 CHECKSUM MISMATCH IN A CHUNK"))
-                data = body
-        return data
+        return (_pipeline(msgs[0][3], f"{self._f.path}: {self.name}")
+                if msgs else [])
 
     def _fill(self):
         """The fill value of a version-2 or -3 fill value message, 0 where
@@ -1094,32 +1340,77 @@ class _RDataset(Dataset):
     def _chunks(self, lay):
         """[(chunk offset, address, stored bytes, filter mask)] of every
         chunk written, and the chunk shape."""
-        if lay[0] == "chunked":
-            _, _, addr, cdims = lay
-            if addr == UNDEF:
-                return [], cdims
-            rank = len(self.shape)
+        _, index, addr, cdims, single = lay
+        if addr == UNDEF:
+            return [], cdims
+        f, rank = self._f, len(self.shape)
+        nbytes = int(np.prod(cdims, dtype=np.int64)) * self.dtype.itemsize
+        if index == "btree1":
             out = []
             # a key: chunk bytes, filter mask, rank + 1 offsets (the last
             # the element-size axis, 0)
-            for key, child in _btree1_entries(self._f, addr,
-                                              8 + 8 * (rank + 1)):
+            for key, child in _btree1_entries(f, addr, 8 + 8 * (rank + 1)):
                 size, mask = struct.unpack_from("<II", key)
                 out.append((struct.unpack_from(f"<{rank}Q", key, 8), child,
                             size, mask))
             return out, cdims
-        addr, cdims = lay[1], lay[2]
-        if addr == UNDEF:
-            return [], cdims
-        nbytes = int(np.prod(cdims, dtype=np.int64)) * self.dtype.itemsize
-        if lay[0] == "single":
-            _, _, _, size, mask = lay
-            return [((0,) * len(cdims), addr,
-                     nbytes if size is None else size, mask or 0)], cdims
-        grid = [-(-s // c) for s, c in zip(self.shape, cdims)]
-        return [(tuple(i * c for i, c in zip(idx, cdims)),
-                 addr + k * nbytes, nbytes, 0)
-                for k, idx in enumerate(np.ndindex(*grid))], cdims
+        if index == "single":
+            size, mask = single or (nbytes, 0)
+            return [((0,) * rank, addr, size, mask)], cdims
+        if index == "btree2":
+            return self._btree2_chunks(addr, cdims, nbytes), cdims
+        # the linear chunk index of an array index runs over the chunks of
+        # the maximum dimensions (a fixed array; a grid of them as implicit)
+        # or, for an extensible array, over the unlimited dimension first
+        # and the others' maximum chunks, in their order, after it
+        (_, _, _, space), = self._obj.find(0x01)
+        maxshape = _decode_maxshape(space)
+        grid = [-(-(s if m is None else m) // c)
+                for s, m, c in zip(self.shape, maxshape, cdims)]
+        if index == "implicit":
+            idx = np.arange(int(np.prod(grid, dtype=np.int64)))
+            addrs = addr + idx.astype(np.uint64) * np.uint64(nbytes)
+            sizes, masks = None, np.zeros(len(idx), np.uint32)
+        else:
+            raw, esize, filtered = (_fixed_array if index == "farray"
+                                    else _extensible_array)(f, addr)
+            addrs, sizes, masks = _chunk_elements(raw, esize, filtered)
+            idx = np.flatnonzero(addrs != np.uint64(UNDEF))
+            addrs, masks = addrs[idx], masks[idx]
+            sizes = None if sizes is None else sizes[idx]
+        if index == "earray":
+            unlim = [m is None for m in maxshape].index(True)
+            rest = grid[:unlim] + grid[unlim + 1:]
+            n_rest = int(np.prod(rest, dtype=np.int64))
+            coords = np.unravel_index(idx % n_rest, rest) if rest else ()
+            coords = [*coords[:unlim], idx // n_rest, *coords[unlim:]]
+        else:
+            coords = np.unravel_index(idx, grid)
+        offsets = np.stack([np.asarray(c, np.int64) * n
+                            for c, n in zip(coords, cdims)], axis=1)
+        sizes = [nbytes] * len(idx) if sizes is None else sizes.tolist()
+        return list(zip(map(tuple, offsets.tolist()), addrs.tolist(), sizes,
+                        masks.tolist())), cdims
+
+    def _btree2_chunks(self, addr, cdims, nbytes):
+        """The chunks of a v2 B-tree index: records of type 10 (address,
+        scaled offsets) or 11 (address, stored size in the bytes left over,
+        filter mask, scaled offsets)."""
+        rank = len(self.shape)
+        btype, recs = _btree2_records(self._f, addr)
+        if btype not in (10, 11):
+            raise FatalError(self._where(f"CHUNK INDEX OF V2 B-TREE TYPE "
+                                         f"{btype}"))
+        out = []
+        for r in recs:
+            at = _u(r, 0, 8)
+            tail = len(r) - 8 * rank
+            scaled = struct.unpack_from(f"<{rank}Q", r, tail)
+            size, mask = ((_u(r, 8, tail - 12), _u(r, tail - 4, 4))
+                          if btype == 11 else (nbytes, 0))
+            out.append((tuple(s * c for s, c in zip(scaled, cdims)), at, size,
+                        mask))
+        return out
 
     def _read_chunked(self, lay):
         """Decode chunk by chunk into one preallocated array: edge chunks
@@ -1139,7 +1430,10 @@ class _RDataset(Dataset):
         n = int(np.prod(cdims, dtype=np.int64))
         for off, addr, size, mask in inside:
             raw = buf[addr:addr + size]
-            data = self._unfilter(raw, filters, mask) if filters else raw
+            data = (_unfilter(raw, filters, mask,
+                              self._where(f"CHUNK AT {addr}"),
+                              self.dtype.itemsize, n * self.dtype.itemsize)
+                    if filters else raw)
             if len(data) < n * self.dtype.itemsize:
                 raise FatalError(self._where(
                     f"CHUNK AT {addr} HOLDS {len(data)} BYTES, NOT "
@@ -1154,6 +1448,21 @@ class _RDataset(Dataset):
     def __getitem__(self, key):
         if key is not Ellipsis and key != ():
             raise FatalError(self._where("ONLY [...] IS READ"))
+        out = self._read()
+        if self._bits is None:
+            return out
+        # HDF5's integer conversion to the full-size type: the precision
+        # bits at the bit offset, sign-extended where signed
+        off, prec = self._bits
+        v = (out.astype(out.dtype.newbyteorder("=")).view(
+            f"u{out.dtype.itemsize}").astype(np.uint64) >> np.uint64(off)) \
+            & np.uint64((1 << prec) - 1)
+        if self.dtype.kind == "i":
+            v = v.astype(np.int64)
+            v = np.where(v >> (prec - 1) & 1, v - (1 << prec), v)
+        return v.astype(self.dtype)
+
+    def _read(self):
         lay = self._layout()
         n = int(np.prod(self.shape, dtype=np.int64))
         if lay[0] == "compact":
@@ -1273,14 +1582,12 @@ class _Reader:
         """An old-style group: the names (local heap) and object headers
         of its symbol table nodes, which its v1 B-tree keeps in name
         order."""
-        buf, path = self._buf, self.path
-        if bytes(buf[lheap:lheap + 4]) != b"HEAP":
-            raise FatalError(f"{path}: NO LOCAL HEAP AT {lheap}")
+        buf = self._buf
+        _signature(self, lheap, b"HEAP", "LOCAL HEAP")
         data = _u(buf, lheap + 24, 8)
         out = {}
         for _, snod in _btree1_entries(self, btree, 8):
-            if bytes(buf[snod:snod + 4]) != b"SNOD":
-                raise FatalError(f"{path}: NO SYMBOL TABLE NODE AT {snod}")
+            _signature(self, snod, b"SNOD", "SYMBOL TABLE NODE")
             for i in range(struct.unpack_from("<H", buf, snod + 6)[0]):
                 e = snod + 8 + 40 * i
                 at = data + _u(buf, e, 8)
@@ -1372,9 +1679,7 @@ class _Reader:
         objs = self._gcols.get(coll)
         if objs is None:
             buf = self._buf
-            if bytes(buf[coll:coll + 4]) != b"GCOL":
-                raise FatalError(f"{self.path}: NO GLOBAL HEAP COLLECTION "
-                                 f"AT {coll}")
+            _signature(self, coll, b"GCOL", "GLOBAL HEAP COLLECTION")
             size = struct.unpack_from("<Q", buf, coll + 8)[0]
             p, end, objs = coll + 16, coll + size, {}
             while p + 16 <= end:

@@ -101,7 +101,9 @@ class NCWriter:
 
     def def_var(self, name, dtype, dims, deflate=None, shuffle=False,
                 chunks=None, contiguous=False, big_endian=False,
-                fletcher32=False, fill=None):
+                fletcher32=False, fill=None, szip=None):
+        """``szip``: (options mask, pixels per block) for
+        ``nc_def_var_szip`` (NC_SZIP_NN 32, NC_SZIP_EC 4)."""
         dt = np.dtype(dtype)
         v = ctypes.c_int()
         ids = (ctypes.c_int * max(len(dims), 1))(*[self.dims[d]
@@ -124,6 +126,9 @@ class NCWriter:
             self._ok(self.lib.nc_def_var_deflate(
                 self.ncid, vid, int(shuffle), int(deflate is not None),
                 deflate or 0), "nc_def_var_deflate")
+        if szip is not None:
+            self._ok(self.lib.nc_def_var_szip(self.ncid, vid, *szip),
+                     "nc_def_var_szip")
         if fletcher32:
             self._ok(self.lib.nc_def_var_fletcher32(self.ncid, vid,
                                                     NC_FLETCHER32),
@@ -410,6 +415,192 @@ def copy_through_netcdf_c(src, dst, deflate=1):
             g.put(name, a)
 
 
+# ---- h5py with libver "latest" --------------------------------------------
+
+_NC_DIM_NAME = "This is a netCDF dimension but not a netCDF variable. %10d"
+
+
+class H5Writer:
+    """A NetCDF4 file written through h5py with netCDF-C's conventions
+    (dimension scales named as netCDF-C names them, ``_Netcdf4Dimid``,
+    ``_Netcdf4Coordinates``, ``DIMENSION_LIST``; creation order tracked),
+    under the library-version bound ``libver`` ("latest": HDF5 1.10's
+    chunk indexes, an extensible array for a variable with one unlimited
+    dimension and a fixed array for one with none, as netCDF-C linked
+    against HDF5 1.10.0/1.10.1 or h5netcdf so configured write them)."""
+
+    def __init__(self, path, libver="latest"):
+        import h5py
+
+        self.h5py = h5py
+        self.f = h5py.File(path, "w", libver=libver, track_order=True)
+        self.dims = {}
+
+    def def_dim(self, name, size, data=None, records=0):
+        """``size`` None: unlimited, at ``records`` (netCDF-C leaves it at
+        0); ``data``: a coordinate variable's values."""
+        if size is None:
+            ds = self.f.create_dataset(name, shape=(records,),
+                                       maxshape=(None,), dtype="f4",
+                                       chunks=(1024,), track_order=True)
+        elif data is None:
+            ds = self.f.create_dataset(name, shape=(size,), dtype="f4",
+                                       track_order=True)
+        else:
+            ds = self.f.create_dataset(name, data=data, track_order=True)
+        ds.make_scale(name if data is not None
+                      else _NC_DIM_NAME % (size or 0))
+        ds.attrs["_Netcdf4Dimid"] = np.int32(len(self.dims))
+        self.dims[name] = ds
+
+    def def_var(self, name, dims, data, **h5kw):
+        """A variable with its data: chunked along ``h5kw`` (h5py's
+        create_dataset keywords: chunks, compression, scaleoffset, ...),
+        unlimited where its dimension is."""
+        maxshape = tuple(None if self.dims[d].maxshape[0] is None else n
+                         for d, n in zip(dims, np.shape(data)))
+        ds = self.f.create_dataset(name, data=data, maxshape=maxshape,
+                                   track_order=True, **h5kw)
+        for i, d in enumerate(dims):
+            ds.dims[i].attach_scale(self.dims[d])
+        ds.attrs["_Netcdf4Coordinates"] = np.array(
+            [list(self.dims).index(d) for d in dims], np.int32)
+        return ds
+
+    def put_att(self, name, value, var=None):
+        """str: fixed-length text as netCDF-C's NC_CHAR ("" a null
+        dataspace); numbers as they are."""
+        target = self.f if var is None else self.f[var]
+        if isinstance(value, str):
+            value = (self.h5py.Empty(np.dtype("S1")) if not value
+                     else np.bytes_(value.encode()))
+        target.attrs[name] = value
+
+    def close(self):
+        self.f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *a):
+        self.close()
+
+
+_NC_HIDDEN = ("CLASS", "NAME", "DIMENSION_LIST", "REFERENCE_LIST",
+              "_Netcdf4Dimid", "_Netcdf4Coordinates")
+
+
+def copy_through_h5py(src, dst, filters):
+    """Rewrite a NetCDF4 file through h5py with libver "latest" (see
+    ``H5Writer``): the same dims in order, variables with their data and
+    attributes, global attributes. ``filters(name, array, unlimited)``
+    gives each variable's create_dataset keywords (chunks and filters);
+    ``unlimited`` says which axes are."""
+    import h5py
+
+    with h5py.File(src, "r") as f, H5Writer(dst) as g:
+        dims = sorted((int(ds.attrs["_Netcdf4Dimid"]), name, ds)
+                      for name, ds in f.items()
+                      if "_Netcdf4Dimid" in ds.attrs)
+        for _, name, ds in dims:
+            unlimited = ds.maxshape[0] is None
+            g.def_dim(name, None if unlimited else ds.shape[0],
+                      records=ds.shape[0] if unlimited else 0)
+        for k, v in f.attrs.items():
+            g.f.attrs[k] = v
+        for name, ds in f.items():
+            if "_Netcdf4Dimid" in ds.attrs:
+                continue
+            a = ds[...]
+            names = [d[0].name.lstrip("/") for d in ds.dims]
+            g.def_var(name, names, a, **filters(
+                name, a, [g.dims[d].maxshape[0] is None for d in names]))
+            for k, v in ds.attrs.items():
+                if k not in _NC_HIDDEN:
+                    g.f[name].attrs[k] = v
+
+
+def mixed_filters(name, a, unlimited):
+    """szip (NN, 8 pixels per block) and LZF in turn by the variable's
+    name; a chunk is one record of an unlimited axis and at most 500
+    elements along the first other axis (several chunks per record);
+    text through LZF."""
+    fixed = [i for i, u in enumerate(unlimited) if not u]
+    chunks = tuple(1 if u else min(n, 500) if i == fixed[0] else n
+                   for i, (n, u) in enumerate(zip(a.shape, unlimited)))
+    if a.dtype.kind == "S" or sum(map(ord, name)) % 2:
+        return dict(chunks=chunks, compression="lzf", shuffle=True)
+    return dict(chunks=chunks, compression="szip",
+                compression_opts=("nn", 8))
+
+
+def write_wrf_target_latest(path, grid, cfg):
+    """A WRF target file as h5py writes it with libver "latest" (see
+    ``H5Writer``): XLAT/XLONG, MAPFAC_M, SINALPHA, COSALPHA and HGT as
+    (Time, south_north, west_east) under extensible-array indexes, the
+    staggered XLAT/XLONG_U/V and MAPFAC_U/V as 2-D fields under fixed
+    arrays; szip (NN and EC) and LZF in turn, LU_INDEX an integer under
+    scale-offset, and a 1,000-value global attribute (``ETA_LEVELS``, a
+    huge object of the dense attribute storage's heap)."""
+    ny, nx = grid.ny, grid.nx
+    f32 = np.float32
+    nn, ec = (dict(compression="szip", compression_opts=(m, 8))
+              for m in ("nn", "ec"))
+    lzf = dict(compression="lzf", shuffle=True)
+    hgt = (1500.0 * np.exp(-((grid.lon + 110.0) / 8.0) ** 2)
+           * (1 + 0.2 * np.sin(np.deg2rad(grid.lat) * 5)))
+    lu = 1 + (np.abs(np.round(grid.lat * 3 + grid.lon)) % 21)
+    rec = {"XLAT": (grid.lat, nn), "XLONG": (grid.lon, nn),
+           "MAPFAC_M": (grid.mapfac_m, lzf), "SINALPHA": (grid.sina, ec),
+           "COSALPHA": (grid.cosa, lzf), "HGT": (hgt, nn),
+           "LU_INDEX": (lu.astype(np.int32), dict(scaleoffset=0))}
+    flat = {"XLAT_U": (grid.lat_u, "X", lzf), "XLONG_U": (grid.lon_u, "X", ec),
+            "XLAT_V": (grid.lat_v, "Y", nn), "XLONG_V": (grid.lon_v, "Y", lzf),
+            "MAPFAC_U": (grid.mapfac_u, "X", nn),
+            "MAPFAC_V": (grid.mapfac_v, "Y", ec)}
+    dims2 = {"X": ("south_north", "west_east_stag"),
+             "Y": ("south_north_stag", "west_east")}
+    with H5Writer(path) as f:
+        f.def_dim("Time", None)
+        f.def_dim("DateStrLen", 19)
+        f.def_dim("west_east", nx)
+        f.def_dim("south_north", ny)
+        f.def_dim("west_east_stag", nx + 1)
+        f.def_dim("south_north_stag", ny + 1)
+        f.def_var("Times", ("Time", "DateStrLen"),
+                  np.frombuffer(b"2024-03-25_10:00:00", "S1").reshape(1, 19),
+                  chunks=(1, 19), **lzf)
+        for name, (a, kw) in rec.items():
+            a = np.asarray(a, np.int32 if name == "LU_INDEX" else f32)[None]
+            f.def_var(name, ("Time", "south_north", "west_east"), a,
+                      chunks=(1, -(-ny // 2), -(-nx // 2)), **kw)
+            f.put_att("FieldType", 106 if name == "LU_INDEX" else 104,
+                      var=name)
+            f.put_att("MemoryOrder", "XY ", var=name)
+            f.put_att("stagger", "", var=name)
+        for name, (a, stag, kw) in flat.items():
+            a = np.asarray(a, f32)
+            f.def_var(name, dims2[stag], a,
+                      chunks=tuple(-(-n // 2) for n in a.shape), **kw)
+            f.put_att("FieldType", 104, var=name)
+            f.put_att("stagger", stag, var=name)
+        gatts = {
+            "TITLE": " OUTPUT FROM WRF V4.5 MODEL",
+            "WEST-EAST_GRID_DIMENSION": np.int32(nx + 1),
+            "SOUTH-NORTH_GRID_DIMENSION": np.int32(ny + 1),
+            "DX": f32(cfg.dx), "DY": f32(cfg.dy),
+            "CEN_LAT": f32(cfg.ref_lat), "CEN_LON": f32(cfg.ref_lon),
+            "TRUELAT1": f32(cfg.truelat1), "TRUELAT2": f32(cfg.truelat2),
+            "MOAD_CEN_LAT": f32(cfg.ref_lat), "STAND_LON": f32(cfg.stand_lon),
+            "POLE_LAT": f32(90.0), "POLE_LON": f32(0.0),
+            "MAP_PROJ": np.int32(cfg.proj_code),
+            "MAP_PROJ_CHAR": cfg.map_proj_char,
+            "ETA_LEVELS": np.linspace(1.0, 0.0, 1000),
+        }
+        for k, val in gatts.items():
+            f.put_att(k, val)
+
+
 # ---- the manifest ----------------------------------------------------------
 
 def make_target_fixture(path):
@@ -426,6 +617,20 @@ def make_target_fixture(path):
     hgt = (1500.0 * np.exp(-((grid.lon + 110.0) / 8.0) ** 2)
            * (1 + 0.2 * np.sin(np.deg2rad(grid.lat) * 5)))
     write_wrf_target(path, grid, cfg, hgt=hgt)
+
+
+def make_latest_target_fixture(path):
+    """A 60x45 Lambert conformal grid at 30 km over the central US,
+    written by h5py with libver "latest" (``write_wrf_target_latest``)."""
+    from mpassit_tpu_torch.config import Config
+    from mpassit_tpu_torch.grids.target import build_target_grid
+
+    cfg = Config.from_dict({"target_grid_type": "lambert", "nx": 61,
+                            "ny": 46, "dx": 30000.0, "dy": 30000.0,
+                            "ref_lat": 38.5, "ref_lon": -97.5,
+                            "truelat1": 38.5, "truelat2": 38.5,
+                            "stand_lon": -97.5})
+    write_wrf_target_latest(path, build_target_grid(cfg), cfg)
 
 
 def make_diag_fixture(path):
@@ -472,8 +677,11 @@ def main():
 
     os.makedirs(FIXTURES, exist_ok=True)
     files = {"wrf_lambert_target.nc": make_target_fixture,
-             "mpas_diag_tiny.nc": make_diag_fixture}
+             "mpas_diag_tiny.nc": make_diag_fixture,
+             "wrf_lambert_latest.nc": make_latest_target_fixture}
     manifest = {"writer": libnetcdf().nc_inq_libvers().decode().split()[0],
+                "writer_latest": f"h5py {h5py.version.version}, HDF5 "
+                                 f"{h5py.version.hdf5_version}",
                 "files": {}}
     for name, make in files.items():
         path = os.path.join(FIXTURES, name)

@@ -187,6 +187,39 @@ def test_netcdf_c_target_file(first_run, monkeypatch):
     _assert_files_match(got.cfg.output_file, ref.cfg.output_file)
 
 
+def test_latest_target_file(first_run, monkeypatch):
+    """A wrfout-style target written by h5py with libver "latest"
+    (superblock 3; extensible- and fixed-array chunk indexes; szip, LZF
+    and scale-offset; a huge attribute): the port's read with h5py
+    blocked is its read through h5py bit for bit, and the whole run
+    matches the JAX package's run on the same file."""
+    d, cfg, art1 = first_run
+    target = str(d / "wrf_target_latest.nc")
+    nf.write_wrf_target_latest(target, art1.grid, art1.cfg)
+    with open(target, "rb") as f:
+        assert f.read(9)[8] == 3
+    via_h5py = target_grid_from_file(target)
+    with monkeypatch.context() as mp:
+        mp.setitem(sys.modules, "h5py", None)
+        with nc4.NetCDF4File(target) as f:
+            assert isinstance(f._f, hdf5._Reader)
+        ours = target_grid_from_file(target)
+    assert (ours.nx, ours.ny, ours.proj_code) == \
+        (via_h5py.nx, via_h5py.ny, via_h5py.proj_code)
+    for f in _GRID_FIELDS:
+        a, b = getattr(ours, f), getattr(via_h5py, f)
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), f
+    jcfg = _file_cfg(cfg, d, target, "file_latest")
+    pcfg = _port(copy.deepcopy(jcfg))
+    pcfg.output_file = str(d / "file_latest_port.nc")
+    ref = jax_run(jcfg, jnp.float32)
+    with monkeypatch.context() as mp:
+        mp.setitem(sys.modules, "h5py", None)
+        got = tpipe.run_pipeline(pcfg, device="cpu")
+    _assert_results_close(got.result, ref.result)
+    _assert_files_match(got.cfg.output_file, ref.cfg.output_file)
+
+
 # ---- mercator, polar, regional lat-lon -------------------------------------
 
 @pytest.mark.parametrize("proj,extra", [
