@@ -1,0 +1,9 @@
+"""device_idle: the share of the traced hours' wall clock in which no
+kernel, copy or memset ran on the device, in %."""
+
+
+def read(ctx):
+    tr = ctx["trace"]
+    if tr is None or tr.window_s() <= 0:
+        return None
+    return 100.0 * (1.0 - tr.busy_s() / tr.window_s())
