@@ -36,8 +36,10 @@ one JSON line:
   MPASSIT_GATHER_KERNEL=1 (in-kernel gather; the later runs find the
   weights cache warm). Every kernel's launch and plain-call counters are
   zeroed just before each run and read just after, against the launches
-  the route owes for the applies it made; stage timings and peak device
-  memory per run;
+  the route owes for the applies it made; stage timings, the
+  ``interp_data_split_s`` (the run's own ``apply.*`` and ``weights.pack``
+  stages, from its spans: host clock, no synchronize, so a fetch includes
+  its wait for the group's kernel) and peak device memory per run;
 - check (per route): sampled target points of every output variable
   against a float64 numpy evaluation sum(w * src[idx]) of the same ELL
   weights (after an f64 Q4 rotation for the winds), bound 1e-6 of the
@@ -1289,6 +1291,16 @@ class StripRecorder:
                 for v, c in self.count.items() if (c != 1).any()}
 
 
+def interp_split(art, split):
+    """Where interp_data went: the run's own ``apply.*`` and
+    ``weights.pack`` stages (its spans, host clock; none synchronizes, so
+    a span includes what it waits for), with ``split`` (the sharded
+    phase's band gather)."""
+    stages = art.timings.stages if art is not None else {}
+    return {**{k: v for k, v in stages.items()
+               if k.startswith("apply.") or k == "weights.pack"}, **split}
+
+
 def streamed_phase(pipeline, nml, default_art, device, seed, reduced,
                    default_peak_gb, arts, calls, split, pack_geom):
     """main_path_streamed: the CLI on ``nml`` (stream_output = .true., the
@@ -1359,7 +1371,7 @@ def streamed_phase(pipeline, nml, default_art, device, seed, reduced,
         "write_to_file_is": "StripRecorder's open, puts (each checked "
                             "against the default route) and finish; no "
                             "file is written",
-        "interp_data_split_s": dict(split),
+        "interp_data_split_s": interp_split(art, split),
         "group_width": pack_geom.get("gw", 0),
         "n_groups": sum(-(-c[1] // c[2]) if c[2] else 1 for c in packed),
         "pack_cols": pack_geom.get("cols"), "puts": rec.stats["blocks"],
@@ -1450,7 +1462,7 @@ def sharded_phase(pipeline, nml, nml_sharded, default_art, device, seed,
         art.regridders.clear()
         peak = torch.cuda.max_memory_allocated(device) / 1e9
         return art, {"rc": rc, "t_s": t_main, "stages_s": art.timings.stages,
-                     "interp_data_split_s": dict(split),
+                     "interp_data_split_s": interp_split(art, split),
                      "launches": launches,
                      "expected_launches": expected_launches(
                          "ell", calls, matmul_apply.FETCH),
@@ -1670,7 +1682,8 @@ def profiled_phase(pipeline, nml, default_art, arts, calls, reduced):
     art = arts[0]
     art.regridders.clear()
     expected = expected_launches("ell", calls, matmul_apply.FETCH)
-    path = os.path.join(prof_dir, f"trace_{os.getpid()}.json")
+    # the directory was emptied before the run: its one trace
+    (path,) = [os.path.join(prof_dir, n) for n in os.listdir(prof_dir)]
     t0 = time.perf_counter()
     events = ts.load_events(path)
     summ = ts.summarize(events)
@@ -1974,7 +1987,8 @@ def matrix_phase(pipeline, nml, device, seed, reduced, arts, calls, packs,
         line.update(
             grid=[art.grid.ny, art.grid.nx], proj_code=art.cfg.proj_code,
             map_proj_char=art.cfg.map_proj_char,
-            stages_s=art.timings.stages, interp_data_split_s=dict(split),
+            stages_s=art.timings.stages,
+            interp_data_split_s=interp_split(art, split),
             launches=launches, expected_launches=expected,
             applies=list(calls), packs=list(packs), plain_calls=plain_calls,
             peak_device_gb=peak, in_kernel_rotation=rotated,
@@ -2193,32 +2207,8 @@ def main(argv=None) -> int:
     record(matmul_apply.PackedSlabRegridder, "packed")
     record(matmul_apply.SlabMatmulRegridder, "slab")
     matmul_apply.PackedSlabRegridder._grouped_width = width_wrapped
-    # where interp_data goes: host->device source upload, one-hot operator
-    # build, gather-layout build, kernel launches, device->host strip
-    # fetch, each bracketed by synchronizes
+    # the band gather of the sharded phase, bracketed by synchronizes
     split = {}
-    split_keys = {"_src_window_to_device": "upload_s",
-                  "_build_A_T": "build_A_s",
-                  "_chunk_slab_cached": "chunk_layout_s",
-                  "packed_apply": "kernel_s", "onehot_apply": "kernel_s",
-                  "onehot_apply_packed": "kernel_s",
-                  "packed_gather_apply": "kernel_s",
-                  "_fetch_strips": "fetch_s"}
-
-    def timed(name, key):
-        fn = getattr(matmul_apply, name)
-
-        def wrapped(*a, **kw):
-            torch.cuda.synchronize(device)
-            t = time.perf_counter()
-            r = fn(*a, **kw)
-            torch.cuda.synchronize(device)
-            split[key] = split.get(key, 0.0) + time.perf_counter() - t
-            return r
-        setattr(matmul_apply, name, wrapped)
-
-    for name, key in split_keys.items():
-        timed(name, key)
     if not has_h5py:
         # the in-process runs keep their result in memory and write no
         # file: this keeps the smoke run's time (each 7-GB write is taken
@@ -2249,7 +2239,8 @@ def main(argv=None) -> int:
         peaks[route] = torch.cuda.max_memory_allocated(device) / 1e9
         emit({"phase": phase, "switches": switches, "rc": rc, "t_s": t_main,
               "stages_s": art.timings.stages if art else {},
-              "interp_data_split_s": dict(split), "launches": launches,
+              "interp_data_split_s": interp_split(art, split),
+              "launches": launches,
               "expected_launches": expected, "applies": list(calls),
               "plain_calls": plain_calls, "peak_device_gb": peaks[route],
               "out_shape": [art.grid.ny, art.grid.nx] if art else None,

@@ -17,6 +17,12 @@ Clones the reference's output schema dim-for-dim and attr-for-attr
   operand order (quirk Q11, write_data.F90:1225-1228).
 
 Field data is float32 in the file (NF90_FLOAT throughout the reference).
+
+Each call that hands the file data (``create_var`` with data,
+``write_var``, ``write_var_slab``) is a ``write.store`` span (``_Stores``),
+so the writer's time splits into its transforms and its stores; each block
+the streaming writer's thread writes is a ``write.block`` span of that
+thread.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from datetime import datetime
 import numpy as np
 
 from ..constants import PROJ_LC
+from ..spans import active, recording, span
 from .nc4 import NetCDF4File
 
 log = logging.getLogger("mpassit_tpu_torch")
@@ -73,6 +80,32 @@ def _t3(a):
     if a.ndim == 2:
         return a[None].astype(np.float32)
     return np.moveaxis(a, 2, 0)[None].astype(np.float32)
+
+
+class _Stores:
+    """The file (or whatever stands in for ``NetCDF4File``), each call
+    that carries data a ``write.store`` span; every other call passes
+    through."""
+
+    def __init__(self, f):
+        self._file = f
+
+    def __getattr__(self, name):
+        return getattr(self._file, name)
+
+    def create_var(self, name, dims, dtype, data=None):
+        if data is None:
+            return self._file.create_var(name, dims, dtype)
+        with span("write.store"):
+            return self._file.create_var(name, dims, dtype, data=data)
+
+    def write_var(self, name, data):
+        with span("write.store"):
+            return self._file.write_var(name, data)
+
+    def write_var_slab(self, name, data, starts):
+        with span("write.store"):
+            return self._file.write_var_slab(name, data, starts)
 
 
 class _W:
@@ -286,7 +319,8 @@ class StreamingWriter:
         self._q = None
         self._thread = None
         self._exc = None
-        self.stats = {"t_write_s": 0.0, "t_block_s": 0.0, "blocks": 0}
+        #: the recorder of the call that made the writer, for its thread
+        self._timings = active()
 
     # -- schema -----------------------------------------------------------
     def open(self):
@@ -297,7 +331,7 @@ class StreamingWriter:
         nx, ny = grid.nx, grid.ny
         wrf_mod = cfg.wrf_mod_vars
         plan = self.plan
-        self.f = f = NetCDF4File(self.path, "w")
+        self.f = f = _Stores(NetCDF4File(self.path, "w"))
         w = _W(f)
         _write_preamble(f, w, cfg, grid, data, nz, nzp1, nsoil, None,
                         self.zs)
@@ -403,17 +437,14 @@ class StreamingWriter:
         self._put_checked((var, lev0, block))
 
     def _drain(self):
-        import time as _time
-
         try:
-            while True:
-                item = self._q.get()
-                if item is None:
-                    return
-                t0 = _time.perf_counter()
-                self._write_block(*item)
-                self.stats["t_write_s"] += _time.perf_counter() - t0
-                self.stats["blocks"] += 1
+            with recording(self._timings):
+                while True:
+                    item = self._q.get()
+                    if item is None:
+                        return
+                    with span("write.block"):
+                        self._write_block(*item)
         except BaseException as e:          # surfaced by put()/finish()
             self._exc = e
             # unblock any producer waiting on the bounded queue; items are
@@ -510,9 +541,6 @@ class NullStreamWriter:
     drop their strips here. Peak non-root host memory is one fetched strip
     plus the buffered wind mass fields, same budget as process 0."""
 
-    def __init__(self):
-        self.stats = {"t_write_s": 0.0, "t_block_s": 0.0, "blocks": 0}
-
     def put(self, var, lev0, block):
         pass
 
@@ -529,7 +557,8 @@ def write_output(path: str, cfg, grid, data, res: RegridResult) -> None:
     nz, nzp1, nsoil = res.nz, res.nzp1, res.nsoil
     wrf_mod = cfg.wrf_mod_vars
 
-    with NetCDF4File(path, "w") as f:
+    with NetCDF4File(path, "w") as nc:
+        f = _Stores(nc)
         w = _W(f)
         _write_preamble(
             f, w, cfg, grid, data, nz, nzp1, nsoil,

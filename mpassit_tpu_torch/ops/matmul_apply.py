@@ -47,6 +47,12 @@ gather route is off under a mesh, as in the JAX package (its
 ``_use_gather`` needs ``mesh is None``): ``MPASSIT_GATHER_KERNEL=1`` with
 a mesh runs the default route. The grouped apply runs sharded, the same
 group loop on every rank (the group width agreed as the ranks' least).
+
+Spans (``spans.py``): each pack loaded or built is a ``weights.pack``, a
+route's device operands built on first use ``apply.operands``, each
+column group's upload ``apply.upload`` and its fetch ``apply.fetch``; the
+counters ``apply.upload_bytes``, ``apply.fetch_bytes`` (host bytes each
+way), ``apply.groups`` (launches) and ``pack.cache_hits``/``_misses``.
 """
 
 from __future__ import annotations
@@ -60,6 +66,7 @@ import torch.distributed as dist
 
 from ..parallel.multihost import gather_bands
 from ..parallel.sharding import band_rows
+from ..spans import count, span
 from .gather_kernel import CH, packed_gather_apply
 from .onehot_kernel import onehot_apply, onehot_apply_packed
 from .packed_kernel import _validate_rotate, packed_apply
@@ -296,30 +303,37 @@ def _pack_union_cached(idx_w_fn, ny, nx, n_src, cache_dir=None,
                        ell_fps=None):
     """Disk-cached ``_pack_compact(_pack_union(...))``, keyed by the ELLs'
     content fingerprints so any weight change invalidates. ``idx_w_fn`` is
-    a thunk returning the (idx, w) K-concatenation, evaluated on a miss."""
+    a thunk returning the (idx, w) K-concatenation, evaluated on a miss.
+    One ``weights.pack`` span, loaded or built; a load counts as
+    ``pack.cache_hits``, a build (a miss, or no cache) as
+    ``pack.cache_misses``."""
     from ..diskcache import load_arrays, save_arrays
 
-    path = None
-    if cache_dir and ell_fps:
-        os.makedirs(cache_dir, exist_ok=True)
-        path = _pack_cache_path(cache_dir, ell_fps, ny, nx)
-        hit = load_arrays(path)
-        if hit is not None:
-            try:
-                meta, arrs = hit
-                return (arrs["slab_idx"], arrs["loc"], arrs["loc_w"],
-                        int(meta["W"]), int(meta["nty"]), int(meta["ntx"]),
-                        int(meta["n_tiles"]))
-            except KeyError:
-                pass  # incomplete entry: rebuild
-    idx, w = idx_w_fn()
-    out = _pack_compact(_pack_union(idx, w, ny, nx, n_src))
-    if path is not None:
-        slab_idx, loc, loc_w, W, nty, ntx, n_tiles = out
-        save_arrays(path, {"W": W, "nty": nty, "ntx": ntx,
-                           "n_tiles": n_tiles},
-                    {"slab_idx": slab_idx, "loc": loc, "loc_w": loc_w})
-    return out
+    with span("weights.pack"):
+        path = None
+        if cache_dir and ell_fps:
+            os.makedirs(cache_dir, exist_ok=True)
+            path = _pack_cache_path(cache_dir, ell_fps, ny, nx)
+            hit = load_arrays(path)
+            if hit is not None:
+                try:
+                    meta, arrs = hit
+                    out = (arrs["slab_idx"], arrs["loc"], arrs["loc_w"],
+                           int(meta["W"]), int(meta["nty"]),
+                           int(meta["ntx"]), int(meta["n_tiles"]))
+                    count("pack.cache_hits", 1)
+                    return out
+                except KeyError:
+                    pass  # incomplete entry: rebuild
+        count("pack.cache_misses", 1)
+        idx, w = idx_w_fn()
+        out = _pack_compact(_pack_union(idx, w, ny, nx, n_src))
+        if path is not None:
+            slab_idx, loc, loc_w, W, nty, ntx, n_tiles = out
+            save_arrays(path, {"W": W, "nty": nty, "ntx": ntx,
+                               "n_tiles": n_tiles},
+                        {"slab_idx": slab_idx, "loc": loc, "loc_w": loc_w})
+        return out
 
 
 def _chunk_slab_cached(slab_idx, loc, loc_w, W, dst_shape, cache_dir=None,
@@ -360,18 +374,21 @@ def _src_window_to_device(src, lo, gw, device, pad_rows=0):
     package's copy converts the whole block first)."""
     blocks = src if isinstance(src, (list, tuple)) else [src]
     n_src = np.shape(blocks[0])[0]
-    buf = torch.zeros((n_src + pad_rows, gw), dtype=torch.float32,
-                      device=device)
-    off = 0
-    for b in blocks:
-        bw = 1 if np.ndim(b) == 1 else np.shape(b)[1]
-        a, c = max(off, lo), min(off + bw, lo + gw)
-        if a < c:
-            win = (np.asarray(b)[:, None] if np.ndim(b) == 1
-                   else b[:, a - off:c - off])
-            win = np.ascontiguousarray(win, dtype=np.float32)
-            buf[:n_src, a - lo:c - lo] = torch.from_numpy(win).to(device)
-        off += bw
+    with span("apply.upload"):
+        buf = torch.zeros((n_src + pad_rows, gw), dtype=torch.float32,
+                          device=device)
+        off = nbytes = 0
+        for b in blocks:
+            bw = 1 if np.ndim(b) == 1 else np.shape(b)[1]
+            a, c = max(off, lo), min(off + bw, lo + gw)
+            if a < c:
+                win = (np.asarray(b)[:, None] if np.ndim(b) == 1
+                       else b[:, a - off:c - off])
+                win = np.ascontiguousarray(win, dtype=np.float32)
+                buf[:n_src, a - lo:c - lo] = torch.from_numpy(win).to(device)
+                nbytes += win.nbytes
+            off += bw
+    count("apply.upload_bytes", nbytes)
     return buf
 
 
@@ -421,26 +438,32 @@ def _fetch_strips(o, C, ny, nx, lo0, root_only, out, strip_sink,
     world = 1 if mesh is None else mesh.world
     get = not (root_only and mesh is not None and mesh.rank != 0)
     n_rows = min(band, ny)          # rank 0's grid rows: the most of any
-    for lo in range(lo0, min(lo0 + o.shape[2], C), CB):
-        cb_eff = min(CB, C - lo, lo0 + o.shape[2] - lo)
-        strip = None
-        if get:
-            strip = (out[:, :, lo:lo + cb_eff] if strip_sink is None
-                     else np.empty((ny, nx, cb_eff), np.float32))
-        rows = max(1, FETCH_TMP // (4 * nx * cb_eff))
-        for r in range(0, n_rows, rows):
-            r1 = min(r + rows, n_rows)
-            parts = gather_bands(o[r:r1, :nx, lo - lo0:lo - lo0 + cb_eff],
-                                 mesh, root_only)
-            if strip is None:
-                continue
-            parts = parts.unflatten(0, (world, r1 - r))
-            for k in range(world):
-                g0, g1 = k * band + r, min(k * band + r1, ny)
-                if g0 < g1:
-                    torch.from_numpy(strip[g0:g1]).copy_(parts[k, :g1 - g0])
-        if strip_sink is not None and get:
-            strip_sink(lo, strip)
+    nbytes = 0
+    with span("apply.fetch"):
+        for lo in range(lo0, min(lo0 + o.shape[2], C), CB):
+            cb_eff = min(CB, C - lo, lo0 + o.shape[2] - lo)
+            strip = None
+            if get:
+                strip = (out[:, :, lo:lo + cb_eff] if strip_sink is None
+                         else np.empty((ny, nx, cb_eff), np.float32))
+            rows = max(1, FETCH_TMP // (4 * nx * cb_eff))
+            for r in range(0, n_rows, rows):
+                r1 = min(r + rows, n_rows)
+                parts = gather_bands(
+                    o[r:r1, :nx, lo - lo0:lo - lo0 + cb_eff], mesh,
+                    root_only)
+                if strip is None:
+                    continue
+                parts = parts.unflatten(0, (world, r1 - r))
+                for k in range(world):
+                    g0, g1 = k * band + r, min(k * band + r1, ny)
+                    if g0 < g1:
+                        dst = strip[g0:g1]
+                        torch.from_numpy(dst).copy_(parts[k, :g1 - g0])
+                        nbytes += dst.nbytes
+            if strip_sink is not None and get:
+                strip_sink(lo, strip)
+    count("apply.fetch_bytes", nbytes)
 
 
 def _host_result(shape, root_only, mesh, strip_sink):
@@ -505,10 +528,11 @@ class _Operator:
     def _ell_dev(self):
         """Per-method (n_tiles, K, TILE) loc/w device tensors."""
         if self._locws is None:
-            self._locws = tuple(
-                _per_method(a, self.n_tiles, self._Ks, dt, self.device)
-                for a, dt in ((self._loc_host, np.int32),
-                              (self._w_host, np.float32)))
+            with span("apply.operands"):
+                self._locws = tuple(
+                    _per_method(a, self.n_tiles, self._Ks, dt, self.device)
+                    for a, dt in ((self._loc_host, np.int32),
+                                  (self._w_host, np.float32)))
         return self._locws
 
     @property
@@ -516,33 +540,38 @@ class _Operator:
         """Per-method f32 one-hot operators (n_tiles, W, TILE) over the
         slab, built on the device on first use and kept (one-hot route)."""
         if self._As is None:
-            loc3 = np.asarray(self._loc_host).reshape(
-                self.n_tiles, TILE, sum(self._Ks))
-            w3 = np.asarray(self._w_host).reshape(loc3.shape)
-            self._As, koff = [], 0
-            for K in self._Ks:
-                loc_m, w_m = (
-                    torch.tensor(a[:, :, koff:koff + K].reshape(-1, K),
-                                 dtype=dt, device=self.device)
-                    for a, dt in ((loc3, torch.int64), (w3, torch.float32)))
-                self._As.append(_build_A_T(loc_m, w_m, self.n_tiles, self.W))
-                koff += K
+            with span("apply.operands"):
+                loc3 = np.asarray(self._loc_host).reshape(
+                    self.n_tiles, TILE, sum(self._Ks))
+                w3 = np.asarray(self._w_host).reshape(loc3.shape)
+                As, koff = [], 0
+                for K in self._Ks:
+                    loc_m, w_m = (
+                        torch.tensor(a[:, :, koff:koff + K].reshape(-1, K),
+                                     dtype=dt, device=self.device)
+                        for a, dt in ((loc3, torch.int64),
+                                      (w3, torch.float32)))
+                    As.append(_build_A_T(loc_m, w_m, self.n_tiles, self.W))
+                    koff += K
+                self._As = As
         return self._As
 
     def _gather_dev(self):
         """(ch_src, locs8, ws) device tensors of the gather route; the
         chunked-run layout is computed (or loaded) on first use."""
         if self._gather is None:
-            ch_src, loc8, self.W8 = _chunk_slab_cached(
-                self._slab_idx_host, self._loc_host, self._w_host, self.W,
-                self.dst_shape, cache_dir=self.cache_dir, ell_fps=self._fps)
-            self._gather = (
-                torch.tensor(np.asarray(ch_src), dtype=torch.int32,
-                             device=self.device),
-                _per_method(loc8, self.n_tiles, self._Ks, np.int32,
-                            self.device),
-                _per_method(self._w_host, self.n_tiles, self._Ks,
-                            np.float32, self.device))
+            with span("apply.operands"):
+                ch_src, loc8, self.W8 = _chunk_slab_cached(
+                    self._slab_idx_host, self._loc_host, self._w_host,
+                    self.W, self.dst_shape, cache_dir=self.cache_dir,
+                    ell_fps=self._fps)
+                self._gather = (
+                    torch.tensor(np.asarray(ch_src), dtype=torch.int32,
+                                 device=self.device),
+                    _per_method(loc8, self.n_tiles, self._Ks, np.int32,
+                                self.device),
+                    _per_method(self._w_host, self.n_tiles, self._Ks,
+                                np.float32, self.device))
         return self._gather
 
     def _slab(self, src_dev):
@@ -647,6 +676,7 @@ class SlabMatmulRegridder(_Operator):
         out = _host_result((ny, nx, C), root_only, self.mesh, strip_sink)
         src_dev = self._upload(src, Cp)
         if self.route == "gather" and Cp <= FETCH:
+            count("apply.groups", 1)
             o = self._gather_apply(src_dev)
             _fetch_strips(o, C, ny, nx, 0, root_only, out, strip_sink,
                           self.mesh)
@@ -655,6 +685,7 @@ class SlabMatmulRegridder(_Operator):
             del src_dev
             for g in range(0, Cp, FETCH):
                 gw = min(FETCH, Cp - g)
+                count("apply.groups", 1)
                 o = self._apply(slab[:, :, g:g + gw].contiguous())
                 _fetch_strips(o, C, ny, nx, g, root_only, out, strip_sink,
                               self.mesh)
@@ -852,6 +883,7 @@ class PackedSlabRegridder(_Operator):
         out = _host_result((ny, nx, self.C_total), root_only, self.mesh,
                            strip_sink)
         for g in range(0, self.Cp, gw):
+            count("apply.groups", 1)
             src_dev = self._upload(src, min(gw, self.Cp - g), g)
             o = self._apply_padded(src_dev, g)
             del src_dev

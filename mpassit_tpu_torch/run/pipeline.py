@@ -16,11 +16,14 @@ CUDA device every packed and slab apply launches a Hopper kernel of the
 apply route that ``MPASSIT_ELL_KERNEL``/``MPASSIT_GATHER_KERNEL`` pick
 (ops/matmul_apply.py); on the CPU they run its plain PyTorch version.
 
-``MPASSIT_PROFILE=<dir>`` (counterpart of the JAX package's
-``jax.profiler.trace``) records the run with ``torch.profiler``: host
-activity, and the device's on a CUDA device, each ``Timings`` stage a
-``record_function`` span; the Chrome trace lands in ``<dir>`` as
-``trace_<pid>.json`` (``tools/trace_summary.py`` reads it).
+Every call records its spans and counters (``spans.Timings``, the
+artifacts' ``timings``): the eight top-level stages, and inside them the
+spans the weights, apply and writer modules open. ``MPASSIT_PROFILE=<dir>``
+(counterpart of the JAX package's ``jax.profiler.trace``) also records the
+call with ``torch.profiler``: host activity of every thread, and the
+device's on a CUDA device, each span a ``record_function`` event; the
+Chrome trace lands in ``<dir>`` as ``trace_<pid>_<n>.json``, the n-th
+profiled call of the process (``tools/trace_summary.py`` reads it).
 
 Multi-process runs (parallel/multihost.py): ``main`` resolves the device
 first (``cuda:LOCAL_RANK``, or the CPU), then starts the process group
@@ -34,9 +37,9 @@ their strips into a ``NullStreamWriter``.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import logging
 import os
-import time
 
 import numpy as np
 import torch
@@ -82,38 +85,23 @@ from ..parallel.sharding import (
     SourceShardedRegridder,
     make_grid_mesh,
 )
+from ..spans import Timings, recording, span
 
 log = logging.getLogger("mpassit_tpu_torch")
 
 
-@dataclasses.dataclass
-class Timings:
-    stages: dict = dataclasses.field(default_factory=dict)
-
-    def add(self, name: str, dt: float):
-        self.stages[name] = self.stages.get(name, 0.0) + dt
-
-
-class _Timer:
-    """Host wall clock of one stage; on a CUDA device the stage ends with
-    a synchronize, so queued device work is charged to the stage that
-    issued it. The stage is also a ``record_function`` span, which a
-    profiled run (MPASSIT_PROFILE) records with the device work inside
-    it."""
+class _Timer(span):
+    """A top-level stage: a span, logged with its seconds so far. The six
+    stages of the reference's sequence end, on a CUDA device, with a
+    synchronize (``device``), so queued device work is charged to the
+    stage that issued it; the host-only stages take none."""
 
     def __init__(self, timings: Timings, name: str, device=None):
-        self.t, self.name, self.device = timings, name, device
-
-    def __enter__(self):
-        self.span = torch.profiler.record_function(self.name)
-        self.span.__enter__()
-        self.t0 = time.perf_counter()
+        super().__init__(name, sync=device)
+        self.t = timings
 
     def __exit__(self, *a):
-        if self.device is not None and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.span.__exit__(*a)
-        self.t.add(self.name, time.perf_counter() - self.t0)
+        super().__exit__(*a)
         log.info("- %s: %.3fs", self.name, self.t.stages[self.name])
 
 
@@ -506,19 +494,30 @@ def run_pipeline(cfg: Config, device, dtype=None) -> PipelineArtifacts:
                      lambda: _run_pipeline(cfg, device, dtype))
 
 
+#: numbers the profiled calls of the process, so each has a trace of its own
+_TRACE_N = itertools.count(1)
+
+
 def _profiled(out_dir: str, device, run):
-    """``run()`` under torch.profiler (host activity, plus the device's on
-    a CUDA device; no shapes, no stacks), then its Chrome trace written
-    to ``out_dir``/trace_<pid>.json (the directory made if missing)."""
+    """``run()`` under torch.profiler (host activity of every thread, plus
+    the device's on a CUDA device; no shapes, no stacks), then its Chrome
+    trace written to ``out_dir``/trace_<pid>_<n>.json, the n-th profiled
+    call of the process (the directory made if missing)."""
+    from torch._C._profiler import _ExperimentalConfig
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(out_dir, exist_ok=True)
-    with profile(activities=acts) as prof:
+    path = os.path.join(out_dir, f"trace_{os.getpid()}_{next(_TRACE_N)}.json")
+    # every thread: the streaming writer's spans are on a thread of its own
+    with profile(activities=acts, experimental_config=_ExperimentalConfig(
+            profile_all_threads=True)) as prof:
+        # one op first: the profiler's per-thread set-up then lands before
+        # the first span, not inside it
+        torch.empty(0)
         art = run()
-    path = os.path.join(out_dir, f"trace_{os.getpid()}.json")
     prof.export_chrome_trace(path)
     log.info("- profile trace: %s", path)
     return art
@@ -526,21 +525,32 @@ def _profiled(out_dir: str, device, run):
 
 def _run_pipeline(cfg: Config, device, dtype) -> PipelineArtifacts:
     timings = Timings()
+    with recording(timings):
+        art = _run_stages(cfg, device, dtype, timings)
+    log.info("- counts: %s", " ".join(
+        f"{k}={v}" for k, v in sorted(timings.counts.items())))
+    return art
 
-    def timer(name):
-        return _Timer(timings, name, device)
+
+def _run_stages(cfg: Config, device, dtype,
+                timings: Timings) -> PipelineArtifacts:
+    def timer(name, sync=True):
+        return _Timer(timings, name, device if sync else None)
 
     with timer("define_target_grid"):
         grid = build_target_grid(cfg)
     with timer("define_input_grid"):
         mesh = mesh_from_file(cfg.grid_file_input_grid)
 
-    routing = build_routing(cfg.varlist_dir, cfg.interp_diag,
-                            cfg.interp_hist, cfg.wrf_mod_vars)
-    if not cfg.interp_diag and not cfg.interp_hist:
-        # input_data.F90:114 error_handler message, verbatim
-        raise FatalError(
-            "SET INTERP_DIAG AND/OR INTERP_HIST TO TRUE TO OBTAIN OUTPUT")
+    # the routing and the input checks: a host-only stage in two parts,
+    # before and after the read
+    with timer("route_fields", sync=False):
+        routing = build_routing(cfg.varlist_dir, cfg.interp_diag,
+                                cfg.interp_hist, cfg.wrf_mod_vars)
+        if not cfg.interp_diag and not cfg.interp_hist:
+            # input_data.F90:114 error_handler message, verbatim
+            raise FatalError(
+                "SET INTERP_DIAG AND/OR INTERP_HIST TO TRUE TO OBTAIN OUTPUT")
 
     data = InputData()
     # ingest dtype: f32 unless the strict -r8 analog is requested
@@ -555,52 +565,56 @@ def _run_pipeline(cfg: Config, device, dtype) -> PipelineArtifacts:
             read_hist_data(cfg.hist_file_input_grid, routing, data,
                            dtype=in_dtype)
 
-    # Reference parity: block_decomp_file is validated when provided
-    # (model_grid.F90:437); it decomposes nothing here.
-    if cfg.block_decomp_file != "NULL":
-        from ..parallel.decomp import read_block_decomp_file
+    with timer("route_fields", sync=False):
+        # Reference parity: block_decomp_file is validated when provided
+        # (model_grid.F90:437); it decomposes nothing here.
+        if cfg.block_decomp_file != "NULL":
+            from ..parallel.decomp import read_block_decomp_file
 
-        read_block_decomp_file(cfg.block_decomp_file, mesh.ncells)
+            read_block_decomp_file(cfg.block_decomp_file, mesh.ncells)
 
-    # Input/grid dim consistency: a field sized for a different mesh would
-    # misindex the weight apply (utils.F90:16-33 fail-fast contract).
-    for name, arr in data.fields.items():
-        n_expect = (mesh.nvertices
-                    if any(s.in_name == name for s in routing.vert_3d)
-                    else mesh.ncells)
-        if arr.shape[0] != n_expect:
-            raise FatalError(
-                f"FIELD {name} HAS {arr.shape[0]} CELLS BUT THE MPAS GRID "
-                f"FILE HAS {n_expect}")
-    for wname, warr in (("uReconstructZonal", data.u),
-                        ("uReconstructMeridional", data.v)):
-        if warr is not None and warr.shape[0] != mesh.ncells:
-            raise FatalError(
-                f"FIELD {wname} HAS {warr.shape[0]} CELLS BUT THE MPAS GRID "
-                f"FILE HAS {mesh.ncells}")
+        # Input/grid dim consistency: a field sized for a different mesh
+        # would misindex the weight apply (utils.F90:16-33 fail-fast
+        # contract).
+        for name, arr in data.fields.items():
+            n_expect = (mesh.nvertices
+                        if any(s.in_name == name for s in routing.vert_3d)
+                        else mesh.ncells)
+            if arr.shape[0] != n_expect:
+                raise FatalError(
+                    f"FIELD {name} HAS {arr.shape[0]} CELLS BUT THE MPAS GRID "
+                    f"FILE HAS {n_expect}")
+        for wname, warr in (("uReconstructZonal", data.u),
+                            ("uReconstructMeridional", data.v)):
+            if warr is not None and warr.shape[0] != mesh.ncells:
+                raise FatalError(
+                    f"FIELD {wname} HAS {warr.shape[0]} CELLS BUT THE MPAS "
+                    f"GRID FILE HAS {mesh.ncells}")
 
     # cell_order='morton': renumber source cells along a Z-curve over the
     # target's index space BEFORE weight generation, so each target tile's
     # slab gather reads a compact span of source rows; vertex-located
     # fields keep their vertex numbering. Results are unchanged.
     if cfg.cell_order == "morton":
-        from ..mesh.reorder import (
-            apply_perm,
-            reorder_cells_by_latitude,
-            reorder_cells_morton,
-        )
+        with timer("reorder_cells", sync=False):
+            from ..mesh.reorder import (
+                apply_perm,
+                reorder_cells_by_latitude,
+                reorder_cells_morton,
+            )
 
-        ro = (reorder_cells_morton(mesh, grid.proj)
-              if grid.proj is not None else reorder_cells_by_latitude(mesh))
-        mesh = ro.mesh
-        vert_names = {s.in_name for s in routing.vert_3d}
-        for k in list(data.fields):
-            if k not in vert_names:
-                data.fields[k] = apply_perm(data.fields[k], ro.perm)
-        if data.u is not None:
-            data.u = apply_perm(data.u, ro.perm)
-        if data.v is not None:
-            data.v = apply_perm(data.v, ro.perm)
+            ro = (reorder_cells_morton(mesh, grid.proj)
+                  if grid.proj is not None
+                  else reorder_cells_by_latitude(mesh))
+            mesh = ro.mesh
+            vert_names = {s.in_name for s in routing.vert_3d}
+            for k in list(data.fields):
+                if k not in vert_names:
+                    data.fields[k] = apply_perm(data.fields[k], ro.perm)
+            if data.u is not None:
+                data.u = apply_perm(data.u, ro.perm)
+            if data.v is not None:
+                data.v = apply_perm(data.v, ro.perm)
 
     with timer("weight_generation"):
         weights = build_weights(cfg, mesh, grid, routing)
@@ -803,16 +817,11 @@ def _run_pipeline(cfg: Config, device, dtype) -> PipelineArtifacts:
         res.zs = mesh.zs
 
     if writer is not None:
-        # a write_to_file span of its own: what the run waits for here
-        with torch.profiler.record_function("write_to_file"):
-            t0 = time.perf_counter()
+        # what the run waits for here: the writer thread's last blocks
+        # (its blocks are write.block spans of that thread; the schema's
+        # open is charged to write_to_file too)
+        with timer("write_to_file", sync=False), span("write.finish"):
             writer.finish()
-            dt = time.perf_counter() - t0
-        timings.add("write_to_file", dt)
-        # what the run waited for at the end; the schema's open is charged
-        # to write_to_file too. overlap = 1 - finish_wait / stream_write
-        timings.stages["stream_finish_wait_s"] = dt
-        timings.stages["stream_write_s"] = writer.stats["t_write_s"]
 
     # test hook: dump the full-precision regrid results before the f32
     # NetCDF write (the file caps agreement at f32 rounding); a streamed

@@ -37,8 +37,9 @@ recipe:
   the NetCDF4 writer would store, per variable and level, and the two
   digest maps are compared. A digest is a choice, for a disk that cannot
   hold both runs' files (two 7-GB files at the CONUS grid): a digest run
-  writes no file, so its ``write_to_file``, ``stream_write_s`` and overlap
-  are reported as null with the reason, its digest times apart;
+  writes no file, so its writer spans (``write_to_file``, ``write.finish``,
+  ``write.block``, ``write.store``) and overlap are reported as null with
+  the reason, its digest times apart;
 - ``fetch_probe``: in a child, one 256-MiB device -> host copy, pageable
   (``Tensor.cpu()``) and into a pinned buffer.
 
@@ -496,7 +497,7 @@ def _writer_times(stages, writer, digest_s=None):
     and apart the stage times the writer's code took around the stand-in
     and, of them, the stand-in's own (``digest_s``)."""
     stages = dict(stages or {})
-    keys = ("write_to_file", "stream_write_s", "stream_finish_wait_s")
+    keys = ("write_to_file", "write.finish", "write.block", "write.store")
     if writer == "digest":
         stand_in = {k: stages[k] for k in keys if k in stages}
         for k in stand_in:
@@ -505,9 +506,10 @@ def _writer_times(stages, writer, digest_s=None):
         return stages, {"writer_times": None, "reason": NO_WRITER,
                         "digest_stand_in_s": stand_in}
     out = {}
-    if stages.get("stream_write_s"):
-        out["stream_overlap"] = 1.0 - (stages["stream_finish_wait_s"]
-                                       / stages["stream_write_s"])
+    # the writer thread's blocks against what the run waited for at the end
+    if stages.get("write.block"):
+        out["stream_overlap"] = 1.0 - (stages["write.finish"]
+                                       / stages["write.block"])
     return stages, out
 
 

@@ -2,8 +2,10 @@
 
     python -m mpassit_tpu_torch.tools.trace_summary TRACE.json
 
-Reads a trace that ``MPASSIT_PROFILE`` wrote (``run/pipeline.py``: one
-``record_function`` span per ``Timings`` stage) or any other
+Reads a trace that ``MPASSIT_PROFILE`` wrote (``run/pipeline.py``:
+``trace_<pid>_<n>.json`` for the n-th profiled run of a process, one
+``record_function`` event per span of ``spans.Timings``: the eight
+top-level stages and the spans inside them) or any other
 ``export_chrome_trace``. Pure Python; runs anywhere.
 
 Device-busy time is the union of the device intervals, the events of
@@ -18,7 +20,7 @@ it reports:
 - the top five device operations by total time inside the window, with
   their launch counts;
 - the five longest idle gaps inside the window, each named after the
-  innermost stage span that encloses the whole gap (``null`` where none
+  innermost span that encloses the whole gap (``null`` where none
   does).
 
 Times are in seconds, gap starts relative to the run's window, device

@@ -13,6 +13,7 @@ import os
 
 import numpy as np
 
+from ..spans import count, span
 from .ell import ELLWeights
 
 
@@ -48,9 +49,12 @@ class WeightCache:
 
         Entries are directory-of-.npy (mmap-loaded: a warm start touches
         bytes lazily instead of paying a zip CRC sweep + copy); legacy
-        .npz entries from older rounds still load."""
+        .npz entries from older rounds still load. Counts a load as
+        ``weights.cache_hits``, a build (a miss, or no cache) as
+        ``weights.cache_misses``; each build is a ``weights.build``
+        span."""
         if not self.dir:
-            return builder()
+            return self._build(builder)
         from ..diskcache import load_arrays, save_arrays
 
         d = self._dir(mesh_fp, grid_fp, tag)
@@ -58,22 +62,32 @@ class WeightCache:
         if hit is not None:
             try:
                 meta, arrs = hit
-                return ELLWeights(
+                ell = ELLWeights(
                     idx=arrs["idx"], w=arrs["w"], n_src=int(meta["n_src"]),
                     method=str(meta["method"]),
                     dst_shape=tuple(meta["dst_shape"]),
                     src_loc=str(meta["src_loc"]))
+                count("weights.cache_hits", 1)
+                return ell
             except KeyError:
                 pass  # incomplete entry: rebuild
         legacy = self._path(mesh_fp, grid_fp, tag)
         if os.path.exists(legacy):
             try:
-                return ELLWeights.load(legacy)
+                ell = ELLWeights.load(legacy)
+                count("weights.cache_hits", 1)
+                return ell
             except Exception:
                 pass  # corrupt cache entry: rebuild
-        ell = builder()
+        ell = self._build(builder)
         save_arrays(d, {"n_src": int(ell.n_src), "method": ell.method,
                         "dst_shape": list(ell.dst_shape),
                         "src_loc": ell.src_loc},
                     {"idx": ell.idx, "w": ell.w})
         return ell
+
+    @staticmethod
+    def _build(builder):
+        count("weights.cache_misses", 1)
+        with span("weights.build"):
+            return builder()

@@ -150,7 +150,7 @@ def test_digest_maps_equal_and_complete(digest_run):
         assert w["reason"] == bp.NO_WRITER and w["writer_times"] is None
         assert w["digest_stand_in_s"]["write_to_file"] > 0
         assert 0 < w["digest_stand_in_s"]["digest_s"]
-    assert res["subprocess_stages"]["streamed"]["stream_write_s"] is None
+    assert res["subprocess_stages"]["streamed"]["write.block"] is None
 
 
 def test_digest_stand_in_digests_what_the_file_stores(netcdf4_run,

@@ -1,9 +1,11 @@
 """MPASSIT_PROFILE in the port and the trace reader of
 mpassit_tpu_torch/tools/trace_summary.py.
 
-A profiled CPU run writes a Chrome trace (trace_<pid>.json in the named
-directory, made if missing) that loads as JSON and holds every ``Timings``
-stage as a ``record_function`` span; its result arrays and output file are
+A profiled CPU run writes a Chrome trace (trace_<pid>_<n>.json in the named
+directory, made if missing, n the profiled call of the process: two calls
+leave two traces) that loads as JSON and holds every ``Timings`` span as a
+``record_function`` event, the streamed writer thread's included; its
+result arrays and output file are
 bit for bit the unprofiled run's, and within tests/test_torch_pipeline.py's
 bound of the JAX package's run of the same namelist. trace_summary is held
 to hand-made event lists: overlapping device intervals count once, the
@@ -12,6 +14,7 @@ it."""
 
 import json
 import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -26,17 +29,19 @@ from test_pipeline import make_case
 from test_torch_pipeline import _arrays, _assert_results_close, _port
 from test_torch_streaming import assert_files_identical
 
-#: Timings entries that are values, not intervals of the run: the writer
-#: thread's busy time and the finish wait (inside a write_to_file span)
-DERIVED = ("stream_write_s", "stream_finish_wait_s")
-
-
 @pytest.fixture(autouse=True, scope="module")
 def _threads():
     n = torch.get_num_threads()
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(n)
+
+
+def _trace(d):
+    """The one trace in ``d``, named for this process."""
+    (path,) = d.iterdir()
+    assert path.name.startswith(f"trace_{os.getpid()}_"), path.name
+    return path
 
 
 def _spans(path):
@@ -67,10 +72,22 @@ def runs(tmp_path_factory):
 
 def test_profiled_run_writes_a_trace_with_every_stage(runs):
     _, _, _, prof, prof_dir = runs
-    path = prof_dir / f"trace_{os.getpid()}.json"
-    assert os.listdir(prof_dir) == [path.name]
-    names = {e["name"] for e in _spans(path)}
+    names = {e["name"] for e in _spans(_trace(prof_dir))}
     assert set(prof.timings.stages) <= names, (prof.timings.stages, names)
+
+
+def test_two_profiled_calls_leave_two_traces(tmp_path, monkeypatch):
+    _, cfg, _, _ = make_case(tmp_path)
+    monkeypatch.setenv("MPASSIT_PROFILE", str(tmp_path / "p"))
+    for _ in range(2):
+        tpipe.run_pipeline(_port(cfg), device="cpu")
+    got = [p.name for p in (tmp_path / "p").iterdir()]
+    n = {int(m.group(1)) for g in got
+         if (m := re.fullmatch(rf"trace_{os.getpid()}_(\d+)\.json", g))}
+    assert len(got) == len(n) == 2, got
+    for g in got:
+        assert {"interp_data", "write_to_file"} <= {
+            e["name"] for e in _spans(tmp_path / "p" / g)}
 
 
 def test_profiled_output_is_bit_for_bit_the_unprofiled(runs):
@@ -97,24 +114,29 @@ def test_check_ported_passes_profile(tmp_path, monkeypatch):
     monkeypatch.setenv("MPASSIT_PROFILE", str(tmp_path / "p"))
     art = tpipe.run_pipeline(_port(cfg), device="cpu")
     assert art.regridders["bilinear"].mesh is not None
-    events = ts.load_events(str(tmp_path / "p" / f"trace_{os.getpid()}.json"))
+    events = ts.load_events(str(_trace(tmp_path / "p")))
     names = {e.get("name") for e in events}
     assert {"interp_data", "weight_generation"} <= names
 
 
 def test_streamed_profiled_run_spans(tmp_path, monkeypatch):
     """stream_output: the schema's open and the writer's finish are
-    write_to_file spans; the two derived values have no span."""
+    write_to_file spans; every span has its event, the writer thread's
+    blocks on a thread of their own."""
     _, cfg, _, _ = make_case(tmp_path)
     cfg.stream_output = True
     monkeypatch.setenv("MPASSIT_PROFILE", str(tmp_path / "p"))
     art = tpipe.run_pipeline(_port(cfg), device="cpu")
-    spans = _spans(tmp_path / "p" / f"trace_{os.getpid()}.json")
+    path = _trace(tmp_path / "p")
+    spans = _spans(path)
     names = [e["name"] for e in spans]
-    assert set(art.timings.stages) - set(DERIVED) <= set(names)
+    assert set(art.timings.stages) <= set(names)
     assert names.count("write_to_file") == 2
-    summ = ts.summarize(ts.load_events(
-        str(tmp_path / "p" / f"trace_{os.getpid()}.json")))
+    assert names.count("write.block") == sum(
+        s.name == "write.block" for s in art.timings.spans)
+    assert {e["tid"] for e in spans if e["name"] == "write.block"}.isdisjoint(
+        {e["tid"] for e in spans if e["name"] == "write_to_file"})
+    summ = ts.summarize(ts.load_events(str(path)))
     # no device on the CPU: the run is all idle
     assert summ["device_events"] == 0 and summ["run"]["idle_share"] == 1.0
     assert summ["stages"]["write_to_file"]["window_s"] > 0

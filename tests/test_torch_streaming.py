@@ -91,8 +91,8 @@ def test_streamed_file_equals_in_memory(tmp_path, target):
     regional lat-lon neither."""
     over = LATLON if target == "latlon-regional" else {}
     cfg1, cfg2, art = _run_both(tmp_path, cfg_overrides=over)
-    assert art.timings.stages["stream_write_s"] > 0
-    assert "stream_finish_wait_s" in art.timings.stages
+    assert art.timings.stages["write.block"] > 0
+    assert "write.finish" in art.timings.stages
     assert_files_identical(cfg1.output_file, cfg2.output_file)
 
 
