@@ -17,6 +17,10 @@ Clones the reference's output schema dim-for-dim and attr-for-attr
   operand order (quirk Q11, write_data.F90:1225-1228).
 
 Field data is float32 in the file (NF90_FLOAT throughout the reference).
+Each transform is one pass that rounds once to float32 (``_transform``),
+in the input's own precision where that gives the same bits and in
+float64 elsewhere; the float64 arrays the writer makes are counted as
+``write.f64_bytes``.
 
 Each call that hands the file data (``create_var`` with data,
 ``write_var``, ``write_var_slab``) is a ``write.store`` span (``_Stores``),
@@ -35,7 +39,7 @@ from datetime import datetime
 import numpy as np
 
 from ..constants import PROJ_LC
-from ..spans import active, recording, span
+from ..spans import active, count, recording, span
 from .nc4 import NetCDF4File
 
 log = logging.getLogger("mpassit_tpu_torch")
@@ -74,12 +78,86 @@ def _parse_wrf_time(s: str) -> datetime:
                     int(s[11:13]), int(s[14:16]), int(s[17:19]))
 
 
-def _t3(a):
-    """(ny, nx[, nlev]) -> C file order (1, [nlev,] ny, nx)."""
+#: the bytes of one row block of Z_C's float64 midpoints (``_z_c``)
+_BLOCK_BYTES = 4 << 20
+
+
+def _transform(category, block, out) -> None:
+    """The file's float32 values of ``block`` (any part of one field) into
+    ``out`` (float32, the same shape), each rounded once from the value
+    the reference computes in float64 (quirk Q7):
+
+    - "T": theta - 300. For float32 input the float32 difference is that
+      value rounded once (300 is a float32, and a float64 result rounded
+      to float32 is the float32 result for 53 >= 2 * 24 + 2), so no
+      float64 pass; any other input subtracts in float64.
+    - "PHB": zgrid * 9.81, always in float64: 9.81 is no float32.
+    - anything else: the values, cast once.
+
+    The ufuncs cast through their own small buffers, so no field-sized
+    float64 array is made."""
+    if category == "T":
+        np.subtract(block, 300.0, out=out, dtype=(
+            np.float32 if block.dtype == np.float32 else np.float64))
+    elif category == "PHB":
+        np.multiply(block, 9.81, out=out, dtype=np.float64)
+    else:
+        out[...] = block
+
+
+def _t3(a, category=None, reuse=None):
+    """(ny, nx[, nlev]) -> C file order (1, [nlev,] ny, nx): a float32
+    array, in the memory order ``astype`` gives (the input's), holding the
+    category's transform (``_transform``) of ``a``.
+
+    ``reuse``: a dict holding the last array made, by shape and strides,
+    filled again in place of a new one of the same layout. The file has
+    consumed it by then (every file and stand-in writes or copies what a
+    call hands it before the call returns), and fresh pages cost the host
+    more system time than the copy into them."""
     a = np.asarray(a)
-    if a.ndim == 2:
-        return a[None].astype(np.float32)
-    return np.moveaxis(a, 2, 0)[None].astype(np.float32)
+    a = a[None] if a.ndim == 2 else np.moveaxis(a, 2, 0)[None]
+    out = np.empty_like(a, dtype=np.float32)
+    if reuse is not None:
+        key = (out.shape, out.strides)
+        if key not in reuse:
+            reuse.clear()
+            reuse[key] = out
+        out = reuse[key]
+    _transform(category, a, out)
+    return out
+
+
+def _midpoints(lower, upper, out, scratch) -> None:
+    """Z_C's float32 midpoints 0.5 * (lower + upper) into ``out``, summed
+    in the float64 ``scratch`` (float32 could overflow or round twice) and
+    rounded once."""
+    np.add(upper, lower, out=scratch, dtype=np.float64)
+    np.multiply(scratch, 0.5, out=out)
+
+
+def _z_c(zgrid, zc) -> None:
+    """Z_C's nz midpoint levels ``zc`` ((nz, ny, nx) float32) of ``zgrid``
+    ((ny, nx, nz + 1)), in row blocks through one float64 scratch of
+    ``_BLOCK_BYTES`` or one row."""
+    nz, ny, nx = zc.shape
+    rows = max(1, _BLOCK_BYTES // (nz * nx * 8))
+    scratch = np.empty((nz, min(rows, ny), nx), np.float64)
+    count("write.f64_bytes", scratch.nbytes)
+    for r0 in range(0, ny, rows):
+        r1 = min(r0 + rows, ny)
+        z = np.moveaxis(zgrid[r0:r1], 2, 0)
+        _midpoints(z[:-1], z[1:], zc[:, r0:r1], scratch[:, :r1 - r0])
+
+
+def _p_top(top, field_max: float) -> float:
+    """P_TOP: the least 0.8 * top-level value of those >= 10, seeded with
+    the field's max (write_data.F90:1362-1372). Rounding is monotone, so
+    the least float64 product is the product of the least value."""
+    sel = top >= 10.0
+    if sel.any():
+        return min(field_max, float(np.float64(top[sel].min()) * 0.8))
+    return field_max
 
 
 class _Stores:
@@ -297,8 +375,9 @@ class StreamingWriter:
     must arrive in ascending order per variable — the strip loops
     guarantee this) -> ``finish()``. Transforms (quirk Q7: T-300,
     PHB=zgrid*9.81 + Z_C midpoints, PB=P_HYD, P_TOP) run in the writer
-    thread at f64, matching the in-memory path bit for bit; streamed and
-    in-memory files are asserted identical in tests/test_streaming.py."""
+    thread, level by level, through the in-memory path's functions;
+    streamed and in-memory files are asserted identical in
+    tests/test_torch_streaming.py."""
 
     _ZERO_NLEV = {"diag2d": None, "cons2d": None, "patch2d": None,
                   "nstd2d": None}
@@ -312,7 +391,8 @@ class StreamingWriter:
         self._depth = queue_depth
         self.f = None
         self._vmeta = {}          # var -> (category, nlev)
-        self._phb_prev = None     # (level_index, (ny, nx) f64 plane)
+        self._phb_prev = None     # (level_index, (ny, nx) plane)
+        self._zc_scratch = None   # (ny, nx) float64, Z_C's midpoint sums
         self._phyd_max = -np.inf
         self._phyd_top = None
         self._minmax = {}
@@ -462,12 +542,11 @@ class StreamingWriter:
                                  max(hi, float(np.max(arr))))
 
     def _write_block(self, var, lev0, block):
-        """Level-by-level: at production strip widths a whole-block f64
-        transform materializes ~6 GB of temporaries (a 256-level strip of
-        1801x1061 planes, f64 + the f32 moveaxis copy) and the casts
-        contend with the fetch path for CPU; per-level working set is two
-        (ny, nx) planes (~30 MB), bit-identical output (the in-memory
-        writer's f64 transforms are elementwise per level too)."""
+        """Level-by-level: at production strip widths a whole-block
+        transform copies a 256-level strip of 1801x1061 planes at once and
+        contends with the fetch path for CPU; per level the working set is
+        a few (ny, nx) planes, and the output is the same bits (every
+        transform is elementwise per level)."""
         block = np.asarray(block)
         if block.ndim == 2:
             block = block[:, :, None]
@@ -477,29 +556,27 @@ class StreamingWriter:
     def _write_level(self, var, lev, plane):
         f = self.f
         category, nlev = self._vmeta[var]
-        out = plane.astype(np.float64)
-        if category == "T":
-            out = out - 300.0               # quirk Q7 (guard is a no-op)
-        elif category == "P_HYD":
+        dat = _t3(plane, category)[None]
+        if category == "P_HYD":
             if lev == self.nz - 1:          # top level
-                self._phyd_top = out.copy()
-            self._phyd_max = max(self._phyd_max, float(out.max()))
-            pb = out.astype(np.float32)[None, None]
-            self._track("PB", pb)
-            f.write_var_slab("PB", pb, (0, lev, 0, 0))
+                self._phyd_top = plane.copy()
+            self._phyd_max = max(self._phyd_max, float(plane.max()))
+            self._track("PB", dat)
+            f.write_var_slab("PB", dat, (0, lev, 0, 0))
         elif category == "PHB":
             # Z_C midpoint against the previous interface level (levels
-            # arrive in ascending order per variable)
-            if (self._phb_prev is not None
-                    and self._phb_prev[0] == lev - 1 and lev - 1 < self.nz):
-                zc = (0.5 * (self._phb_prev[1] + out)).astype(
-                    np.float32)[None, None]
-                # only the nz midpoint levels are written (top interface
-                # stays at fill, module docstring)
+            # arrive in ascending order per variable); only the nz
+            # midpoint levels are written (top interface stays at fill,
+            # module docstring)
+            prev = self._phb_prev
+            if prev is not None and prev[0] == lev - 1 and lev - 1 < self.nz:
+                if self._zc_scratch is None:
+                    self._zc_scratch = np.empty(plane.shape, np.float64)
+                    count("write.f64_bytes", self._zc_scratch.nbytes)
+                zc = np.empty((1, 1) + plane.shape, np.float32)
+                _midpoints(prev[1], plane, zc[0, 0], self._zc_scratch)
                 f.write_var_slab("Z_C", zc, (0, lev - 1, 0, 0))
-            self._phb_prev = (lev, out.copy())
-            out = out * 9.81
-        dat = out.astype(np.float32)[None, None]
+            self._phb_prev = (lev, plane.copy())
         self._track(var, dat)
         if nlev is None:
             f.write_var_slab(var, dat[:, 0], (0, 0, 0))
@@ -516,13 +593,7 @@ class StreamingWriter:
             if self._exc is not None:
                 raise self._exc
             if self.f.has_var("P_TOP") and self._phyd_top is not None:
-                # P_TOP = min over domain of 0.8 * top level, seeded with
-                # the field max (write_data.F90:1362-1372)
-                ptop = self._phyd_max
-                sel = self._phyd_top >= 10.0
-                if sel.any():
-                    ptop = min(ptop,
-                               float((self._phyd_top[sel] * 0.8).min()))
+                ptop = _p_top(self._phyd_top, self._phyd_max)
                 self.f.write_var("P_TOP", np.array([ptop], np.float32))
             for var, (lo, hi) in self._minmax.items():
                 log.debug(" %s %s %s", var, lo, hi)
@@ -556,6 +627,7 @@ def write_output(path: str, cfg, grid, data, res: RegridResult) -> None:
     nx, ny = grid.nx, grid.ny
     nz, nzp1, nsoil = res.nz, res.nzp1, res.nsoil
     wrf_mod = cfg.wrf_mod_vars
+    reuse = {}                  # the fields' file arrays (``_t3``)
 
     with NetCDF4File(path, "w") as nc:
         f = _Stores(nc)
@@ -568,32 +640,30 @@ def write_output(path: str, cfg, grid, data, res: RegridResult) -> None:
         #     write_data.F90:567-731, 1247-1264) --------------------------
         for name, arr, units, desc in (res.diag2d + res.cons2d +
                                        res.patch2d + res.nstd2d):
-            w.var(name, D2, _t3(arr), units, desc, "XLONG XLAT XTIME", "", "XY ")
+            w.var(name, D2, _t3(arr, None, reuse), units, desc,
+                  "XLONG XLAT XTIME", "", "XY ")
 
         # --- 3-D diag fields ---------------------------------------------
         for name, arr, units, desc in res.diag3d:
-            w.var(name, D3, _t3(arr), units, desc, "XLONG XLAT XTIME", "", "XYZ ")
+            w.var(name, D3, _t3(arr, None, reuse), units, desc,
+                  "XLONG XLAT XTIME", "", "XYZ ")
 
         # --- soil fields -------------------------------------------------
         for name, arr, units, desc in res.soil:
-            w.var(name, D3S, _t3(arr), units, desc, "XLONG XLAT XTIME", "", "XYZ ")
+            w.var(name, D3S, _t3(arr, None, reuse), units, desc,
+                  "XLONG XLAT XTIME", "", "XYZ ")
 
         # --- 3-D nz hist fields + WRF extras ------------------------------
         for name, arr, units, desc in res.nz3d:
-            out = np.asarray(arr, dtype=np.float64)
-            if wrf_mod and name == "T":
-                # theta - 300 (the reference's `<10` guard is a no-op CONTINUE)
-                out = out - 300.0
-            w.var(name, D3, _t3(out), units, desc, "XLONG XLAT XTIME", "", "XYZ ")
+            # theta - 300 (the reference's `<10` guard is a no-op CONTINUE)
+            out = _t3(arr, "T" if wrf_mod and name == "T" else None, reuse)
+            w.var(name, D3, out, units, desc, "XLONG XLAT XTIME", "", "XYZ ")
             if wrf_mod and name == "MUB":
                 w.var("MU", D3, np.zeros((1, nz, ny, nx), np.float32), units,
                       "Perturbation " + desc, "XLONG XLAT XTIME", "", "XYZ ")
             if wrf_mod and name == "P_HYD":
-                top = np.asarray(arr, dtype=np.float64)[:, :, nz - 1]
-                ptop = float(np.asarray(arr).max())
-                sel = top >= 10.0
-                if sel.any():
-                    ptop = min(ptop, float((top[sel] * 0.8).min()))
+                arr = np.asarray(arr)
+                ptop = _p_top(arr[:, :, nz - 1], float(arr.max()))
                 f.create_var("P_TOP", ("Time",), "f4",
                              data=np.array([ptop], np.float32))
                 f.set_attr("MemoryOrder", "0 ", var="P_TOP")
@@ -601,40 +671,40 @@ def write_output(path: str, cfg, grid, data, res: RegridResult) -> None:
                 f.set_attr("description", "PRESSURE TOP OF THE MODEL", var="P_TOP")
                 f.set_attr("stagger", "", var="P_TOP")
                 f.set_attr("FieldType", 104, var="P_TOP")
-                w.var("PB", D3, _t3(out), "Pa", "BASE STATE PRESSURE (pfull)",
+                # PB = P_HYD: the same float32 array
+                w.var("PB", D3, out, "Pa", "BASE STATE PRESSURE (pfull)",
                       "XLONG XLAT XTIME", "", "XYZ ")
 
         # --- staggered winds (write_data.F90:832-866, 1160-1197) ---------
         if res.u is not None:
-            w.var("U", D3U, _t3(res.u), "m s^{-1}", "",
+            w.var("U", D3U, _t3(res.u, None, reuse), "m s^{-1}", "",
                   "XLONG_U XLAT_U XTIME", "X", "XYZ ")
         if res.v is not None:
-            w.var("V", D3V, _t3(res.v), "m s^{-1}", "",
+            w.var("V", D3V, _t3(res.v, None, reuse), "m s^{-1}", "",
                   "XLONG_V XLAT_V XTIME", "Y", "XYZ ")
 
         # --- 3-D nzp1 hist fields + Z_C/PHB/PH transforms ----------------
         for name, arr, units, desc in res.nzp13d:
-            out = np.asarray(arr, dtype=np.float64)
             if name == "PHB":
                 # Z_C = vertical midpoints (write_data.F90:1406-1416)
-                mid = 0.5 * (out[:, :, 1:] + out[:, :, :-1])
                 zc = np.asarray(f._f["Z_C"][...])
-                zc[0, :nz] = np.moveaxis(mid, 2, 0).astype(np.float32)
+                _z_c(np.asarray(arr), zc[0, :nz])
                 f.write_var("Z_C", zc)
-                out = out * 9.81
+            out = _t3(arr, "PHB" if name == "PHB" else None, reuse)
             if wrf_mod and name == "PHB":
-                w.var(name, D3P, _t3(out), "gpm", "Base Geopotential Height",
+                w.var(name, D3P, out, "gpm", "Base Geopotential Height",
                       "XLONG XLAT XTIME", "Z", "XYZ ")
                 w.var("PH", D3P, np.zeros((1, nzp1, ny, nx), np.float32),
                       "gpm", "Perturbation Geopotential Height",
                       "XLONG XLAT XTIME", "Z", "XYZ ")
             else:
-                w.var(name, D3P, _t3(out), units, desc,
+                w.var(name, D3P, out, units, desc,
                       "XLONG XLAT XTIME", "Z", "XYZ ")
 
         # --- 3-D vertex hist fields --------------------------------------
         for name, arr, units, desc in res.vert3d:
-            w.var(name, D3, _t3(arr), units, desc, "XLONG XLAT XTIME", "", "XYZ")
+            w.var(name, D3, _t3(arr, None, reuse), units, desc,
+                  "XLONG XLAT XTIME", "", "XYZ")
 
         # --- dummy P (and PB if no P_HYD produced it) ---------------------
         if wrf_mod:
