@@ -5,8 +5,14 @@ how the program does it.
   weights once (4 bytes of index and 4 of weight per nonzero: 3 a mapped
   point for cell and vertex bilinear, 1 for nearest, 4 for the U/V
   restagger, the overlaps the reference counts for conservative) and the
-  outputs written once; the 10-m wind rotation reads u, v, cos and sin and
-  writes u and v.
+  outputs written once; on a grid that rotates, the 10-m wind rotation
+  reads u, v, cos and sin and writes u and v. The restagger maps the
+  points inside the mass grid: on a regional grid every U point but the
+  two outermost columns and every V point but the two outermost rows; on
+  a periodic grid every U point, the seam's two columns one and the same
+  (4 ny nx), and besides the inner V rows each pole's row, whose points
+  take one value, the mean of the nx mass points next to the pole (nx
+  nonzeros a pole; ``reference/expected.py``).
 - ``fetch_bytes``: what the hour has to bring to the host, the output
   variables that are regridded: target points x output columns x 4. The
   mass winds feed the restagger and are no output.
@@ -45,9 +51,12 @@ def columns(cfg: dict) -> dict:
             "rotate10": "u10" in diag and "v10" in diag}
 
 
-def apply_bytes(cfg: dict, ncells: int, nvertices: int, conserve_nnz: int,
-                ny: int, nx: int) -> int:
+def apply_bytes(cfg: dict, grid, ncells: int, nvertices: int,
+                conserve_nnz: int) -> int:
+    """The bytes of ``cfg``'s hour on the reference's target ``grid``
+    (``reference/grid.py``)."""
     c = columns(cfg)
+    ny, nx = grid.ny, grid.nx
     T = ny * nx
     nnz = {"bilinear": 3 * T, "nearest": T, "conserve": conserve_nnz,
            "vertex": 3 * T}
@@ -61,11 +70,13 @@ def apply_bytes(cfg: dict, ncells: int, nvertices: int, conserve_nnz: int,
     nz = c["nz"]
     if c["do_u"]:
         tu = ny * (nx + 1)
-        total += (T + tu) * nz * F32 + 4 * ny * (nx - 1) * NNZ_BYTES
+        u_nnz = 4 * ny * (nx if grid.periodic else nx - 1)
+        total += (T + tu) * nz * F32 + u_nnz * NNZ_BYTES
     if c["do_v"]:
         tv = (ny + 1) * nx
-        total += (T + tv) * nz * F32 + 4 * (ny - 1) * nx * NNZ_BYTES
-    if c["rotate10"]:
+        v_nnz = 4 * (ny - 1) * nx + (2 * nx if grid.periodic else 0)
+        total += (T + tv) * nz * F32 + v_nnz * NNZ_BYTES
+    if c["rotate10"] and grid.rotates:
         total += 6 * T * F32
     return total
 

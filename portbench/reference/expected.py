@@ -13,9 +13,20 @@ T = theta - 300; MU, PH and P zero; PB = P_HYD; P_TOP = the least of
 0.8 x the top level of P_HYD where that is at least 10, and of P_HYD's
 largest value; PHB = zgrid x 9.81; Z_C the midpoints of zgrid, its top
 level the NetCDF fill value. XTIME is start minus valid time in minutes,
-ITIMESTEP that over the time step. The 10-m winds and the mass winds are
-rotated to grid-relative (u cos a + v sin a, v cos a - u sin a) before the
-mass winds are restaggered onto U and V.
+ITIMESTEP that over the time step. Where the grid rotates (Lambert;
+``reference/grid.py``) the file has SINALPHA and COSALPHA, and the 10-m
+winds and the mass winds are rotated to grid-relative (u cos a + v sin a,
+v cos a - u sin a) before the mass winds are restaggered onto U and V.
+
+On a periodic (global) grid the restagger's quads cross the seam, and the
+V points of the outermost rows lie on the poles. There MPASSIT's second
+ESMF regrid (bilinear, mass points to the V stagger, interp.F90:313-328;
+SURVEY Q6, Q9) meets a source grid with one periodic dimension, for which
+ESMF builds an artificial pole: the default ``polemethod`` of a
+non-conservative regrid, ESMF_POLEMETHOD_ALLAVG, whose value is the mean
+of every source point of the row next to the pole. A point on the pole
+takes that value: the mean of the mass winds of row 0 (south) or row
+ny - 1 (north).
 """
 
 from __future__ import annotations
@@ -27,7 +38,7 @@ from datetime import datetime
 import numpy as np
 
 from . import interp
-from .grid import Lambert
+from .grid import target_grid
 from .routing import routing, soil_method
 
 NC_FILL_FLOAT = 9.96921e36
@@ -82,7 +93,7 @@ class Reference:
         self.m = mesh
         self.mesh = interp.Mesh(mesh)
         self.diag, self.hist = fields
-        self.grid = Lambert(self.nml)
+        self.grid = target_grid(self.nml)
         self.cache_dir = cache_dir
 
     # -- source values, as the files hold them ---------------------------
@@ -130,31 +141,32 @@ class Reference:
         g = self.grid
         if which == "U":
             pts = interp.xyz_deg(*g.u(j, i))
-            cands = interp.u_candidates(j, i, g.nx)
+            cands = interp.u_candidates(j, i, g.nx, g.periodic)
         else:
             pts = interp.xyz_deg(*g.v(j, i))
-            cands = interp.v_candidates(j, i, g.ny)
-
-        def corners(jq, iq):
-            return np.stack([self.mass_xyz(jq, iq),
-                             self.mass_xyz(jq, iq + 1),
-                             self.mass_xyz(jq + 1, iq),
-                             self.mass_xyz(jq + 1, iq + 1)], 1)
-        idx, w = interp.quad_bilinear(pts, corners, cands, g.ny, g.nx)
+            cands = interp.v_candidates(j, i, g.ny, g.nx, g.periodic)
+        idx, w = interp.quad_bilinear(pts, self.mass_xyz, cands, g.ny, g.nx,
+                                      g.periodic)
         used, inv = np.unique(idx, return_inverse=True)
         vals = wind(used // g.nx, used % g.nx)          # (nz, len(used))
         inv = inv.reshape(idx.shape)
         out = np.zeros((vals.shape[0], len(idx)))
         for k in range(4):
             out += w[:, k][None, :] * vals[:, inv[:, k]]
+        if which == "V" and g.periodic:
+            for jv, row in ((0, 0), (g.ny, g.ny - 1)):
+                pole = j == jv
+                if pole.any():
+                    out[:, pole] = wind(np.full(g.nx, row),
+                                        np.arange(g.nx)).mean(1)[:, None]
         return out
 
     # -- P_TOP over the whole grid -----------------------------------------
     def full_bilinear(self):
         """Bilinear weights at every mass point, kept in ``cache_dir``."""
         g = self.grid
-        h = hashlib.sha256(repr((self.mesh.ncells, g.ny, g.nx, g.n, g.F,
-                                 g.lon0, g.i1, g.j1, g.X1, g.Y1, g.dx))
+        h = hashlib.sha256(repr((self.mesh.ncells,)
+                                + g.cache_key("bilinear"))
                            .encode()).hexdigest()[:16]
         key = f"refbilinear_{h}.npz"
         path = os.path.join(self.cache_dir, key)
@@ -200,9 +212,10 @@ class Reference:
             out["XLAT_" + st] = Expect(st, [la])
             out["XLONG_" + st] = Expect(st, [lo])
             out["MAPFAC_" + st] = Expect(st, [g.mapfac(la)])
-        cosa, sina = g.rotation(jm, im)
-        out["SINALPHA"], out["COSALPHA"] = Expect("M", [sina]), Expect(
-            "M", [cosa])
+        if g.rotates:
+            cosa, sina = g.rotation(jm, im)
+            out["SINALPHA"], out["COSALPHA"] = Expect("M", [sina]), Expect(
+                "M", [cosa])
         zs = np.zeros(nsoil)
         zs[:] = np.asarray(self.m["zs"], np.float32)[:nsoil]
         out["ZS"] = Expect("whole", zs)
@@ -232,7 +245,7 @@ class Reference:
         out["HGT"] = Expect("M", at("bilinear", "ter"))
         diag = {o: at("bilinear", n) for n, o in r["diag"]}
         names = dict(r["diag"])
-        if "u10" in names and "v10" in names:
+        if g.rotates and "u10" in names and "v10" in names:
             u, v = diag[names["u10"]], diag[names["v10"]]
             diag[names["u10"]] = u * cosa + v * sina
             diag[names["v10"]] = v * cosa - u * sina
@@ -266,7 +279,7 @@ class Reference:
                 b = interp.bilinear(self.mesh, p)
                 u = self.apply(*b, self.src(r["u_var"]))
                 v = self.apply(*b, self.src(r["v_var"]))
-                if r["do_u"] and r["do_v"]:
+                if g.rotates and r["do_u"] and r["do_v"]:
                     ca, sa = g.rotation(jq, iq)
                     return {"U": u * ca + v * sa, "V": v * ca - u * sa}
                 return {"U": u, "V": v}

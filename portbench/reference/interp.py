@@ -18,6 +18,7 @@ grid alone, as MPASSIT defines each method.
   point, hits the point; among the candidate quads the one it lies in
   (least excursion outside [0, 1]^2, the first on ties), clamped onto it
   when it lies outside by less than a hundredth of a cell, else unmapped.
+  On a periodic grid the quads of the last column join it to column 0.
 
 Weights are float64 ``(idx, w)`` arrays, one row per point.
 """
@@ -273,25 +274,31 @@ def _inverse_bilinear(p00, p10, p01, p11):
     return a, b
 
 
-def quad_bilinear(points, corner_xyz, cands, ny, nx):
+def quad_bilinear(points, mass_xyz, cands, ny, nx, periodic=False):
     """Weights of staggered points from the mass grid.
 
-    points (N, 3); corner_xyz(jq, iq) -> (M, 4, 3) the mass points
-    (jq, iq), (jq, iq+1), (jq+1, iq), (jq+1, iq+1); cands (N, C, 2)
-    candidate quad origins in order, negative or out-of-grid ones none.
+    points (N, 3); mass_xyz(jq, iq) -> (M, 3) the unit vectors of mass
+    points; cands (N, C, 2) candidate quad origins in order, negative or
+    out-of-grid ones none. Quad (jq, iq) has the mass points (jq, iq),
+    (jq, iq+1), (jq+1, iq), (jq+1, iq+1), column iq+1 taken modulo nx (on a
+    periodic grid the quad of column nx - 1 crosses the seam).
     Returns (idx (N, 4) flat mass ids, w (N, 4))."""
     N, C, _ = cands.shape
     e1, e2 = _frame(points)
     best = np.full(N, np.inf)
     idx = np.zeros((N, 4), np.int64)
     w = np.zeros((N, 4))
+    last = nx if periodic else nx - 1
     for c in range(C):
         jq, iq = cands[:, c, 0], cands[:, c, 1]
-        ok = (jq >= 0) & (iq >= 0) & (jq < ny - 1) & (iq < nx - 1)
+        ok = (jq >= 0) & (iq >= 0) & (jq < ny - 1) & (iq < last)
         if not ok.any():
             continue
         rows = np.nonzero(ok)[0]
-        cx = corner_xyz(jq[rows], iq[rows])
+        jr, ir = jq[rows], iq[rows]
+        i1 = (ir + 1) % nx
+        cx = np.stack([mass_xyz(jr, ir), mass_xyz(jr, i1),
+                       mass_xyz(jr + 1, ir), mass_xyz(jr + 1, i1)], 1)
         pr = _project(cx, points[rows], e1[rows], e2[rows])
         a, b = _inverse_bilinear(pr[:, 0], pr[:, 1], pr[:, 2], pr[:, 3])
         viol = np.maximum.reduce([-a, a - 1, -b, b - 1, np.zeros_like(a)])
@@ -300,8 +307,9 @@ def quad_bilinear(points, corner_xyz, cands, ny, nx):
         r = rows[take]
         best[r] = viol[take]
         ac, bc = np.clip(a[take], 0, 1), np.clip(b[take], 0, 1)
-        base = jq[r] * nx + iq[r]
-        idx[r] = np.stack([base, base + 1, base + nx, base + nx + 1], 1)
+        b0, b1 = jr[take] * nx, (jr[take] + 1) * nx
+        idx[r] = np.stack([b0 + ir[take], b0 + i1[take], b1 + ir[take],
+                           b1 + i1[take]], 1)
         w[r] = np.stack([(1 - ac) * (1 - bc), ac * (1 - bc),
                          (1 - ac) * bc, ac * bc], 1)
     off = best > QUAD_SLACK
@@ -309,15 +317,24 @@ def quad_bilinear(points, corner_xyz, cands, ny, nx):
     return idx, w
 
 
-def u_candidates(j, i, nx):
+def u_candidates(j, i, nx, periodic=False):
     """Quads that may hold U point (j, i): its mass row's and the one
-    below, none on the outermost columns."""
+    below; on the outermost columns none, unless the grid is periodic,
+    where both columns lie in the quad across the seam."""
     c = np.stack([np.stack([j, i - 1], 1), np.stack([j - 1, i - 1], 1)], 1)
-    c[(i == 0) | (i == nx)] = -1
+    if periodic:
+        c[:, :, 1] %= nx
+    else:
+        c[(i == 0) | (i == nx)] = -1
     return c
 
 
-def v_candidates(j, i, ny):
+def v_candidates(j, i, ny, nx, periodic=False):
+    """Quads that may hold V point (j, i): the two of the mass rows below
+    and above it; none on the outermost rows (on a periodic grid the poles,
+    which ``Reference.staggered`` maps)."""
     c = np.stack([np.stack([j - 1, i], 1), np.stack([j - 1, i - 1], 1)], 1)
+    if periodic:
+        c[:, :, 1] %= nx
     c[(j == 0) | (j == ny)] = -1
     return c

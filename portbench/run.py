@@ -180,11 +180,12 @@ class Run:
             wrf_writer.NetCDF4File = nc4
         self._restore.append(unpatch)
         sink.install(wrf_writer, self.recorder)
-        self.stages = []
+        self.timings = []
 
         def observed(c, device, dtype=None):
             art = run(c, device, dtype)
-            self.stages.append(dict(art.timings.stages))
+            self.timings.append((dict(art.timings.stages),
+                                 dict(art.timings.counts)))
             return art
         pipeline.run_pipeline = observed
         self.pipeline, self.torch = pipeline, torch
@@ -195,7 +196,7 @@ class Run:
             if rc != 0:
                 raise RuntimeError(f"the warm-up hour exited with {rc}")
             self.recorder.hours.clear()
-            self.stages.clear()
+            self.timings.clear()
             self._collect()
 
     def _set_env(self, env: dict):
@@ -257,8 +258,8 @@ class Run:
         self.peak_host = _peak_rss()
         self.peak_device = (torch.cuda.max_memory_allocated()
                             if cuda else 0)
-        self.hours = [{"wall_s": w, "stages": s}
-                      for w, s in zip(walls, self.stages)]
+        self.hours = [{"wall_s": w, "stages": s, "counts": c}
+                      for w, (s, c) in zip(walls, self.timings)]
         self.tr = None
         if prof is not None:
             prof.__exit__(None, None, None)
@@ -287,8 +288,11 @@ class Run:
 
     # -- metrics ------------------------------------------------------------
     def context(self) -> dict:
-        nml = self.cfg["namelist"]
-        ny, nx = nml["ny"] - 1, nml["nx"] - 1
+        """What the metric readers are given. ``stage_mean(names)`` and
+        ``count_mean(names)``: over the window's hours, the mean of the
+        seconds of the program's spans, or of its counters, of those names
+        summed; None where an hour records none of them."""
+        g = self.ref.grid
         mesh = self.mesh
         cached = {}
 
@@ -296,31 +300,34 @@ class Run:
             if "b" not in cached:
                 nnz = self.conserve_nnz()
                 cached["b"] = problem.apply_bytes(
-                    self.cfg, len(mesh["lat_cell"]), len(mesh["lat_vertex"]),
-                    nnz, ny, nx)
+                    self.cfg, g, len(mesh["lat_cell"]),
+                    len(mesh["lat_vertex"]), nnz)
             return cached["b"]
 
-        def stage_mean(names):
-            hs = self.hours
-            if not hs or not all(any(n in h["stages"] for n in names)
-                                 for h in hs):
-                return None
-            return sum(sum(h["stages"].get(n, 0.0) for n in names)
-                       for h in hs) / len(hs)
+        def mean_of(key):
+            def mean(names):
+                hs = self.hours
+                if not hs or not all(any(n in h[key] for n in names)
+                                     for h in hs):
+                    return None
+                return sum(sum(h[key].get(n, 0) for n in names)
+                           for h in hs) / len(hs)
+            return mean
 
         return {"hours": self.hours, "window_s": self.window_s,
                 "setup_s": self.setup_s, "peak_host_bytes": self.peak_host,
                 "peak_device_bytes": self.peak_device, "trace": self.tr,
-                "fetch_bytes": problem.fetch_bytes(self.cfg, ny, nx),
+                "fetch_bytes": problem.fetch_bytes(self.cfg, g.ny, g.nx),
                 "apply_bytes": apply_bytes, "peak_bytes_s": PEAK_BYTES_S,
-                "stage_mean": stage_mean}
+                "stage_mean": mean_of("stages"),
+                "count_mean": mean_of("counts")}
 
     def conserve_nnz(self) -> int:
         """The reference's count of (target cell, source cell) overlaps
         over the whole grid, kept in the cache directory."""
         path = os.path.join(self.cache, "conserve_overlaps.json")
         g = self.ref.grid
-        key = f"{g.ny}x{g.nx}:{g.n!r}:{g.X1!r}:{g.Y1!r}:{g.dx!r}"
+        key = g.cache_key("overlaps")
         if os.path.exists(path):
             with open(path) as f:
                 got = json.load(f)
@@ -423,6 +430,7 @@ def drive(run: Run, bench: dict, trace: bool) -> int:
         return 4
     info = dict(run.info, hours=[h["wall_s"] for h in run.hours],
                 stages=[h["stages"] for h in run.hours],
+                counts=[h["counts"] for h in run.hours],
                 worst=numbers["worst"], faults=numbers["faults"])
     print("portbench: " + json.dumps(info, default=str), file=sys.stderr)
     for k, lim in check.LIMITS.items():

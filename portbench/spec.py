@@ -15,6 +15,7 @@ import os
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
+CONFIGS = os.path.join(HERE, "configs")
 METRICS = os.path.join(HERE, "metrics")
 
 
@@ -35,7 +36,7 @@ def cell(bench: dict, workload: str) -> dict:
 
 
 def config(name: str) -> dict:
-    return load_json(os.path.join(HERE, "configs", name + ".json"))
+    return load_json(os.path.join(CONFIGS, name + ".json"))
 
 
 def traffic(name: str) -> dict:

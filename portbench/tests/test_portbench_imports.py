@@ -53,8 +53,10 @@ def test_no_jax(path):
 def test_reference_imports_nothing_of_the_program(path):
     mods = set(_top_level_imports(path))
     assert not mods & {"mpassit_tpu_torch", "mpassit_tpu", "torch"}, mods
+    # importlib: ``grid.py`` loads a kind's file of ``targets/``, which
+    # this test reads as it reads every other file here
     assert mods <= {"__future__", "math", "os", "datetime", "hashlib", "numpy",
-                    "scipy"}, mods
+                    "scipy", "importlib"}, mods
 
 
 def test_run_loads_no_jax(tmp_path):

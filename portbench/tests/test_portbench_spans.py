@@ -1,6 +1,7 @@
 """The per-layer metrics read from the program's spans: a run of the
 harness at the test size on the CPU gives each a value; a program that
-records none of their spans gives none, and raises nothing."""
+records none of their spans gives none, and raises nothing. The program's
+counters reach a reader as ``count_mean``."""
 
 import pytest
 
@@ -47,3 +48,33 @@ def test_bench_lists_the_span_metrics():
         m = by[name]
         assert m["source"] == "program_span" and m["moves"] == "hour_s"
         assert m["workloads"] == ["conus3km.warm", "ncep218.cold"]
+
+
+def test_counters_reach_a_reader(tmp_path, monkeypatch):
+    """Each hour keeps the program's counters beside its spans; a reader
+    that asks ``count_mean`` for them gets their mean over the hours, and
+    for a counter no hour records, None, so the metric is left out."""
+    metrics = tmp_path / "metrics"
+    metrics.mkdir()
+    (metrics / "f64_mb.py").write_text(
+        "def read(ctx):\n"
+        "    v = ctx['count_mean'](('write.f64_bytes',))\n"
+        "    return None if v is None else v / 1e6\n")
+    (metrics / "nothing.py").write_text(
+        "def read(ctx):\n    return ctx['count_mean'](('no.such',))\n")
+    monkeypatch.setattr(spec, "METRICS", str(metrics))
+    r, _ = tiny_run(tmp_path, spec.traffic("hourly_cold"), seconds=0.2)
+    hours = r.hours
+    assert len(hours) >= 2
+    for h in hours:
+        assert {"apply.fetch_bytes", "apply.upload_bytes", "apply.groups",
+                "weights.cache_misses", "write.f64_bytes"} <= set(h["counts"])
+    bench = {"end_to_end": [
+        {"name": n, "unit": "MB", "better": "lower", "bound": 0.25,
+         "source": "host_clock"} for n in ("f64_mb", "nothing")],
+        "per_layer": []}
+    got = r.metrics(bench, "end_to_end")
+    want = sum(h["counts"]["write.f64_bytes"] for h in hours) / len(hours)
+    assert got == {"f64_mb": {"value": want / 1e6, "unit": "MB"}}
+    assert r.context()["count_mean"](("apply.groups", "no.such")) == sum(
+        h["counts"]["apply.groups"] for h in hours) / len(hours)

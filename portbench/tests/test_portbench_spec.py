@@ -60,7 +60,8 @@ def test_metric_readers(m):
     read = spec.reader(m["name"])
     ctx = {"hours": [], "trace": None, "window_s": 1.0, "setup_s": 2.0,
            "peak_host_bytes": None, "peak_device_bytes": 0,
-           "stage_mean": lambda names: None}
+           "stage_mean": lambda names: None,
+           "count_mean": lambda names: None}
     v = read(ctx)
     # without hours or a trace a reader finds nothing, except set-up's
     # and the device peak's, which every run has
