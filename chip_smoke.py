@@ -452,6 +452,7 @@ def check_outputs(art, n_sample, seed):
 
     from mpassit_tpu_torch.constants import PROJ_LC
     from mpassit_tpu_torch.run.pipeline import build_weights
+    from mpassit_tpu_torch.weights.restagger import with_pole_rows
 
     cfg, grid, mesh, routing = art.cfg, art.grid, art.mesh, art.routing
     data, res = art.data, art.result
@@ -509,19 +510,28 @@ def check_outputs(art, n_sample, seed):
     record("HGT", np.asarray(res.hgt).reshape(-1, 1)[pts],
            ell64("bilinear", pts, mesh.ter))
     # staggered winds: bilinear mesh -> mass points, f64 Q4 rotation,
-    # then the EDGE1/EDGE2 restagger, evaluated at sampled stagger points
+    # then the EDGE1/EDGE2 restagger, evaluated at sampled stagger points;
+    # a periodic grid's V operator reads the pole rows after the mass
+    # points, the means of mass rows 0 and ny-1
     for name, key, arr in (("U", "edge1", res.u), ("V", "edge2", res.v)):
         if arr is None:
             continue
         e = W[key]
         sp = sample(e.idx.shape[0])
         need = np.unique(np.asarray(e.idx)[sp])
+        poles = e.n_src > grid.n_points
+        if poles:
+            edge = np.arange(grid.nx)
+            need = np.union1d(need[need < grid.n_points], np.concatenate(
+                [edge, edge + (grid.ny - 1) * grid.nx]))
         u = ell64("bilinear", need, data.u)
         v = ell64("bilinear", need, data.v)
         if lc:
             u, v = rot64(u, v, need)
         mass = np.zeros((grid.n_points, u.shape[1]))
         mass[need] = u if name == "U" else v
+        if poles:
+            mass = with_pole_rows(mass, grid.ny, grid.nx)
         ref = ell64(key, sp, mass)
         record(name, np.asarray(arr).reshape(-1, arr.shape[-1])[sp], ref)
     bad = {k: v for k, v in errs.items() if not v <= TOL_REL}

@@ -18,7 +18,16 @@ import os
 
 import numpy as np
 
-from ..constants import CORNER, M, PROJ_LC, RAD_PER_DEG, DEG_PER_RAD, U, V
+from ..constants import (
+    CORNER,
+    DEG_PER_RAD,
+    M,
+    PROJ_LATLON,
+    PROJ_LC,
+    RAD_PER_DEG,
+    U,
+    V,
+)
 from .projection import (
     ProjInfo,
     ij_to_latlon,
@@ -69,6 +78,14 @@ class TargetGrid:
     @property
     def n_points(self) -> int:
         return self.ny * self.nx
+
+    @property
+    def periodic(self) -> bool:
+        """MPASSIT's global lat-lon grid (``is_regional = .false.``): ESMF
+        builds it periodic in i, with poles (ESMF_GridCreate1PeriDim,
+        model_grid.F90:684-696), so the restagger crosses the seam and
+        maps the V points on the poles (weights/restagger.py)."""
+        return self.proj_code == PROJ_LATLON and not self.is_regional
 
     def corner_quads(self):
         """Per-mass-cell corner (lat, lon), each (ny, nx, 4), ordered

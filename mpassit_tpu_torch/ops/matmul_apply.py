@@ -52,7 +52,10 @@ Spans (``spans.py``): each pack loaded or built is a ``weights.pack``, a
 route's device operands built on first use ``apply.operands``, each
 column group's upload ``apply.upload`` and its fetch ``apply.fetch``; the
 counters ``apply.upload_bytes``, ``apply.fetch_bytes`` (host bytes each
-way), ``apply.groups`` (launches) and ``pack.cache_hits``/``_misses``.
+way), ``apply.groups`` (launches), ``apply.slab_bytes`` (what each
+launch's tiles stage from the source: tiles x slab rows x the launch's
+columns x 4; slab rows are W, or W8 on the gather route) and
+``pack.cache_hits``/``_misses``.
 """
 
 from __future__ import annotations
@@ -574,6 +577,12 @@ class _Operator:
                                 np.float32, self.device))
         return self._gather
 
+    def _count_slab(self, cols, rows=None):
+        """Count one launch's ``apply.slab_bytes``: this rank's tiles x
+        ``rows`` slab rows (W unless given) x ``cols`` columns x 4."""
+        count("apply.slab_bytes",
+              4 * self.n_tiles * (rows or self.W) * int(cols))
+
     def _slab(self, src_dev):
         """(n_src[+CH], Cp) -> (n_tiles, W, Cp): the one row gather."""
         return torch.index_select(src_dev, 0, self.slab_idx).view(
@@ -623,6 +632,7 @@ class SlabMatmulRegridder(_Operator):
 
     def _apply(self, slab):
         """(n_tiles, W, Cp) slab -> (nyp, nxp, Cp), default or one-hot."""
+        self._count_slab(slab.shape[2])
         if self.route == "onehot":
             return onehot_apply(self.A, slab, nty=self.nty_l, ntx=self.ntx,
                                 precision=self.precision)
@@ -635,6 +645,7 @@ class SlabMatmulRegridder(_Operator):
         in the kernel."""
         ch, locs, ws = self._gather_dev()
         Cp = src_dev.shape[1]
+        self._count_slab(Cp, self.W8)
         return packed_gather_apply(src_dev, ch, locs, ws, W8=self.W8,
                                    ranges=((0, Cp),), nty=self.nty_l,
                                    ntx=self.ntx)
@@ -794,8 +805,10 @@ class PackedSlabRegridder(_Operator):
                       sina=self._sina_t)
         if self.route == "gather":
             ch, locs, ws = self._gather_dev()
+            self._count_slab(src_dev.shape[1], self.W8)
             return packed_gather_apply(src_dev, ch, [locs[m] for m in ms],
                                        [ws[m] for m in ms], W8=self.W8, **kw)
+        self._count_slab(src_dev.shape[1])
         slab = self._slab(src_dev)
         if self.route == "onehot":
             return onehot_apply_packed([self.As[m] for m in ms], slab,

@@ -69,7 +69,12 @@ from ..weights.cache import WeightCache, grid_fingerprint
 from ..weights.conservative import conservative_weights
 from ..weights.ell import ELLWeights
 from ..weights.nearest import nearest_weights
-from ..weights.restagger import edge1_weights, edge2_weights
+from ..weights.restagger import (
+    edge1_weights,
+    edge2_weights,
+    with_pole_rows,
+    wrapped_points,
+)
 
 from ..ops.apply import Regridder
 from ..ops.matmul_apply import PackedSlabRegridder, SlabMatmulRegridder
@@ -85,7 +90,7 @@ from ..parallel.sharding import (
     SourceShardedRegridder,
     make_grid_mesh,
 )
-from ..spans import Timings, recording, span
+from ..spans import Timings, count, recording, span
 
 log = logging.getLogger("mpassit_tpu_torch")
 
@@ -471,11 +476,13 @@ def build_weights(cfg: Config, mesh: MPASMesh, grid: TargetGrid,
         out["vertex"] = get(
             "vertex", lambda: bilinear_vertex_weights(mesh, grid.lat, grid.lon))
     # center -> edge-stagger spherical bilinear (interp.F90:295-328);
-    # depends only on the target grid (mesh_fp kept for a uniform key layout)
+    # depends only on the target grid (mesh_fp kept for a uniform key
+    # layout); a periodic grid's under tags of their own
+    tag = ".periodic" if grid.periodic else ""
     if routing.do_u:
-        out["edge1"] = get("edge1", lambda: edge1_weights(grid))
+        out["edge1"] = get("edge1" + tag, lambda: edge1_weights(grid))
     if routing.do_v:
-        out["edge2"] = get("edge2", lambda: edge2_weights(grid))
+        out["edge2"] = get("edge2" + tag, lambda: edge2_weights(grid))
     return out
 
 
@@ -800,15 +807,23 @@ def _run_stages(cfg: Config, device, dtype,
 
             # center -> EDGE1/EDGE2 spherical bilinear regrid (quirk Q6,
             # interp.F90:295-328) through the same apply engines; streamed
-            # strip by strip when writing as it goes
+            # strip by strip when writing as it goes. A periodic grid's V
+            # operator reads the pole rows after the mass points
             def restagger(key, var, mass):
-                m = mass.reshape(grid.n_points, -1)
-                if writer is None:
-                    return rgs[key].apply_np(m, root_only=root_only)
-                batch = _ApplyBatch(rgs[key], np_dtype, root_only=root_only)
-                batch.add(m, None, stream=[(var, m.shape[1])])
-                batch.run(writer=writer)
-                return None
+                with span("restagger"):
+                    m = mass.reshape(grid.n_points, -1)
+                    if weights[key].n_src > grid.n_points:
+                        m = with_pole_rows(m, grid.ny, grid.nx)
+                    n = wrapped_points(grid, var)
+                    if n:
+                        count("restagger.wrapped_points", n)
+                    if writer is None:
+                        return rgs[key].apply_np(m, root_only=root_only)
+                    batch = _ApplyBatch(rgs[key], np_dtype,
+                                        root_only=root_only)
+                    batch.add(m, None, stream=[(var, m.shape[1])])
+                    batch.run(writer=writer)
+                    return None
 
             if routing.do_u:
                 res.u = restagger("edge1", "U", umass)

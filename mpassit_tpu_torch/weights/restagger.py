@@ -22,6 +22,23 @@ same TPU apply engines as every other operator.
 Edge points outside the mass grid (the outermost staggered column/row) stay
 unmapped (all-zero rows) — the reference's unmappedaction=IGNORE leaves
 them untouched (quirk Q6).
+
+MPASSIT's global lat-lon grid is periodic in i, with poles
+(``TargetGrid.periodic``; model_grid.F90:684-696), and ESMF's regrid
+between two such grids maps those points too:
+
+- U, across the seam: U columns 0 and nx lie on one longitude, in the
+  quad that joins mass column nx-1 to column 0 (a quad's second corner
+  column is ``(iq + 1) mod nx``);
+- V, on the poles: ESMF adds an artificial pole to a source grid with one
+  periodic dimension, valued by default (``ESMF_POLEMETHOD_ALLAVG``) at
+  the mean of the mass row next to it, and V rows 0 and ny lie on -90 and
+  +90 degrees. The V operator's source is the mass grid with those two
+  pole rows appended (``with_pole_rows``: ``n_src = ny*nx + 2``), and
+  each pole point is one entry of weight 1 on its pole row, so K stays 4.
+
+These operators are cached under tags of their own (``edge1.periodic``,
+``edge2.periodic``); every other grid's are as before.
 """
 
 from __future__ import annotations
@@ -77,7 +94,7 @@ def _tangent_frames(xyz):
 
 
 def grid_bilinear_weights(src_lat, src_lon, dst_lat, dst_lon,
-                          cand_quads) -> ELLWeights:
+                          cand_quads, periodic: bool = False) -> ELLWeights:
     """Bilinear weights from a structured source grid onto arbitrary
     destination points with per-point candidate quad lists.
 
@@ -85,6 +102,8 @@ def grid_bilinear_weights(src_lat, src_lon, dst_lat, dst_lon,
     dst_lat/dst_lon: destination coordinates, any shape.
     cand_quads: (T, C, 2) int array of candidate (jq, iq) quad origins per
         flattened destination point; negative entries are padding.
+    periodic: the grid is periodic in i, so the quads of column nx-1 join
+        it to column 0.
     """
     ny, nx = src_lat.shape
     dst_shape = np.shape(dst_lat)
@@ -102,17 +121,18 @@ def grid_bilinear_weights(src_lat, src_lon, dst_lat, dst_lon,
 
     C = cand_quads.shape[1]
     rows = np.arange(T)
+    last = nx if periodic else nx - 1
     for c in range(C):
         jq = cand_quads[:, c, 0]
         iq = cand_quads[:, c, 1]
-        ok = (jq >= 0) & (iq >= 0) & (jq < ny - 1) & (iq < nx - 1)
+        ok = (jq >= 0) & (iq >= 0) & (jq < ny - 1) & (iq < last)
         if not ok.any():
             continue
         jqs, iqs = np.where(ok, jq, 0), np.where(ok, iq, 0)
         c00 = jqs * nx + iqs
-        c10 = c00 + 1
+        c10 = jqs * nx + (iqs + 1) % nx    # across the seam if periodic
         c01 = c00 + nx
-        c11 = c01 + 1
+        c11 = c10 + nx
 
         def proj(cid):
             v = sxyz[cid]
@@ -142,7 +162,7 @@ def grid_bilinear_weights(src_lat, src_lon, dst_lat, dst_lon,
                       dst_shape=tuple(dst_shape), src_loc="grid")
 
 
-def _edge_candidates_u(ny, nx):
+def _edge_candidates_u(ny, nx, periodic=False):
     """EDGE1 (U) points: (ny, nx+1). Point (j, i) sits between mass columns
     i-1, i on mass row j -> candidate quads (j-1, i-1) and (j, i-1)."""
     jj, ii = np.meshgrid(np.arange(ny), np.arange(nx + 1), indexing="ij")
@@ -151,21 +171,29 @@ def _edge_candidates_u(ny, nx):
         np.stack([jj, ii - 1], axis=1),
         np.stack([jj - 1, ii - 1], axis=1),
     ], axis=1)
-    # outermost columns (i=0, i=nx) have no containing quad -> mark invalid
-    outside = (ii == 0) | (ii == nx)
-    cand[outside] = -1
+    if periodic:
+        # the outermost columns (i=0, i=nx) lie in the quad across the seam
+        cand[:, :, 1] %= nx
+    else:
+        # outermost columns (i=0, i=nx) have no containing quad -> invalid
+        outside = (ii == 0) | (ii == nx)
+        cand[outside] = -1
     return cand
 
 
-def _edge_candidates_v(ny, nx):
+def _edge_candidates_v(ny, nx, periodic=False):
     """EDGE2 (V) points: (ny+1, nx). Point (j, i) sits between mass rows
-    j-1, j on mass column i -> candidate quads (j-1, i) and (j-1, i-1)."""
+    j-1, j on mass column i -> candidate quads (j-1, i) and (j-1, i-1);
+    none on the outermost rows (on a periodic grid the poles, which
+    ``edge2_weights`` maps)."""
     jj, ii = np.meshgrid(np.arange(ny + 1), np.arange(nx), indexing="ij")
     jj, ii = jj.reshape(-1), ii.reshape(-1)
     cand = np.stack([
         np.stack([jj - 1, ii], axis=1),
         np.stack([jj - 1, ii - 1], axis=1),
     ], axis=1)
+    if periodic:
+        cand[:, :, 1] %= nx
     outside = (jj == 0) | (jj == ny)
     cand[outside] = -1
     return cand
@@ -175,11 +203,44 @@ def edge1_weights(grid) -> ELLWeights:
     """Mass -> EDGE1 (U stagger) spherical bilinear (interp.F90:295-311)."""
     return grid_bilinear_weights(
         grid.lat, grid.lon, grid.lat_u, grid.lon_u,
-        _edge_candidates_u(grid.ny, grid.nx))
+        _edge_candidates_u(grid.ny, grid.nx, grid.periodic), grid.periodic)
 
 
 def edge2_weights(grid) -> ELLWeights:
-    """Mass -> EDGE2 (V stagger) spherical bilinear (interp.F90:313-328)."""
-    return grid_bilinear_weights(
+    """Mass -> EDGE2 (V stagger) spherical bilinear (interp.F90:313-328).
+    On a periodic grid the source has the two pole rows of
+    ``with_pole_rows`` after the mass points, and each point of V rows 0
+    and ny is one entry of weight 1 on its pole's row."""
+    ny, nx = grid.ny, grid.nx
+    ell = grid_bilinear_weights(
         grid.lat, grid.lon, grid.lat_v, grid.lon_v,
-        _edge_candidates_v(grid.ny, grid.nx))
+        _edge_candidates_v(ny, nx, grid.periodic), grid.periodic)
+    if not grid.periodic:
+        return ell
+    idx = ell.idx.reshape(ny + 1, nx, -1)
+    w = ell.w.reshape(ny + 1, nx, -1)
+    for row, pole in ((0, ny * nx), (ny, ny * nx + 1)):
+        idx[row], w[row] = 0, 0.0
+        idx[row, :, 0], w[row, :, 0] = pole, 1.0
+    return ELLWeights(idx=ell.idx, w=ell.w, n_src=ny * nx + 2,
+                      method=ell.method, dst_shape=ell.dst_shape,
+                      src_loc=ell.src_loc)
+
+
+def with_pole_rows(mass, ny, nx):
+    """The source of a periodic grid's V operator: the (ny*nx, C) mass
+    values with two rows appended, the means of mass rows 0 (the south
+    pole's) and ny-1 (the north pole's), accumulated in float64 and stored
+    in the mass values' dtype: (ny*nx + 2, C)."""
+    poles = np.stack([mass[:nx].mean(axis=0, dtype=np.float64),
+                      mass[-nx:].mean(axis=0, dtype=np.float64)])
+    return np.concatenate([mass, poles.astype(mass.dtype)])
+
+
+def wrapped_points(grid, stagger: str) -> int:
+    """The points of ``stagger`` ("U" or "V") that only a periodic grid's
+    restagger maps: U's two seam columns (2 ny points) or V's two pole
+    rows (2 nx); 0 on every other grid."""
+    if not grid.periodic:
+        return 0
+    return 2 * (grid.ny if stagger == "U" else grid.nx)

@@ -39,9 +39,10 @@ PARENTS = {
     "reorder_cells": {None},
     "weights.build": {"weight_generation"},
     "weights.pack": {"weight_generation", "interp_data"},
-    "apply.operands": {"weight_generation", "interp_data"},
-    "apply.upload": {"interp_data"},
-    "apply.fetch": {"interp_data"},
+    "apply.operands": {"weight_generation", "interp_data", "restagger"},
+    "apply.upload": {"interp_data", "restagger"},
+    "apply.fetch": {"interp_data", "restagger"},
+    "restagger": {"interp_data"},
     "write.store": {"write_to_file", "write.block"},
     "write.block": {None},
     "write.finish": {"write_to_file"},
