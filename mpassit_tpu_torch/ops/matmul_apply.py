@@ -52,7 +52,9 @@ Spans (``spans.py``): each pack loaded or built is a ``weights.pack``, a
 route's device operands built on first use ``apply.operands``, each
 column group's upload ``apply.upload`` and its fetch ``apply.fetch``; the
 counters ``apply.upload_bytes``, ``apply.fetch_bytes`` (host bytes each
-way), ``apply.groups`` (launches), ``apply.slab_bytes`` (what each
+way), ``apply.fetch_staged_bytes`` (the fetched bytes that crossed
+through page-locked staging buffers: all of them on a CUDA device, 0 on
+the CPU), ``apply.groups`` (launches), ``apply.slab_bytes`` (what each
 launch's tiles stage from the source: tiles x slab rows x the launch's
 columns x 4; slab rows are W, or W8 on the gather route) and
 ``pack.cache_hits``/``_misses``.
@@ -62,6 +64,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import threading
 
 import numpy as np
 import torch
@@ -84,10 +87,15 @@ CB = 256
 #: columns per kernel launch in SlabMatmulRegridder.apply_np: bounds device
 #: residency to one (nyp, nxp, FETCH) output group
 FETCH = 512
-#: device bytes of one host fetch: a strip crosses in row chunks of at most
-#: this size, since ``Tensor.cpu`` first copies a strided slice into a
-#: contiguous device buffer (a whole CONUS strip would be 1.95 GB)
+#: device bytes a host fetch may hold, which the grouped apply's budget
+#: keeps free (``_fetch_bytes``): a strip crosses in row chunks, two in
+#: flight (``_fetch_strips``), each first copied from a strided slice into
+#: a contiguous device buffer (a whole CONUS strip would be 1.95 GB)
 FETCH_TMP = 1 << 28
+#: a row chunk holds at most FETCH_TMP // FETCH_CHUNKS bytes (16 MiB), as
+#: does each of the two page-locked staging buffers it crosses through:
+#: resident host memory kept small, copies still at the pinned rate
+FETCH_CHUNKS = 16
 #: share of a CUDA device's free bytes the grouped apply plans on; the rest
 #: is left to the caching allocator's rounding and fragmentation
 FREE_SHARE = 0.9
@@ -425,11 +433,53 @@ def device_budget(device, held=0) -> float:
     return 12e9
 
 
+class _Staging:
+    """The two host buffers through which every fetch from one device
+    stages its row chunks, kept for the life of the process: page-locked
+    on a CUDA device, whose copies into them run on ``stream`` beside the
+    compute stream; plain host memory on the CPU, where the copies are
+    immediate. ``lock`` keeps two threads' fetches off one pair."""
+
+    def __init__(self, device):
+        self.pinned = device.type == "cuda"
+        self.stream = torch.cuda.Stream(device) if self.pinned else None
+        self.bufs = ()
+        self.lock = threading.Lock()
+
+    def buffers(self, n):
+        """The two flat float32 buffers, of at least ``n`` elements each;
+        allocated again only when a chunk outgrows them."""
+        if not self.bufs or self.bufs[0].numel() < n:
+            self.bufs = tuple(torch.empty(n, dtype=torch.float32,
+                                          pin_memory=self.pinned)
+                              for _ in range(2))
+        return self.bufs
+
+
+_STAGING: dict = {}
+_STAGING_LOCK = threading.Lock()
+
+
+def _staging(device) -> _Staging:
+    """The staging buffers of ``device``, made on its first fetch."""
+    with _STAGING_LOCK:
+        if device not in _STAGING:
+            _STAGING[device] = _Staging(device)
+        return _STAGING[device]
+
+
 def _fetch_strips(o, C, ny, nx, lo0, root_only, out, strip_sink,
                   mesh=None):
     """Fetch columns [lo0, lo0 + o's width) ∩ [0, C) of a device result to
-    the host in CB-column strips: into ``out`` or to ``strip_sink``. A
-    strip crosses in row chunks of at most FETCH_TMP bytes per rank.
+    the host: into ``out`` as one strip of all those columns, or to
+    ``strip_sink`` in CB-column strips. A strip crosses in row chunks of
+    at most FETCH_TMP / FETCH_CHUNKS bytes (every rank's part together) or
+    one row, each copied from its strided slice into the device's staging
+    buffers (``_Staging``) in turn, chunk k into buffer k mod 2. On a CUDA
+    device the copies run on the side stream, after the work queued
+    before the fetch, while the host scatters chunk k - 1 out of the other
+    buffer; the side stream is drained before the fetch returns, so the
+    caller may free ``o``.
 
     Under a ``mesh``, ``o`` is this rank's band of tile rows (grid rows
     [rank * band, (rank + 1) * band)): every rank takes the same row
@@ -441,32 +491,68 @@ def _fetch_strips(o, C, ny, nx, lo0, root_only, out, strip_sink,
     world = 1 if mesh is None else mesh.world
     get = not (root_only and mesh is not None and mesh.rank != 0)
     n_rows = min(band, ny)          # rank 0's grid rows: the most of any
-    nbytes = 0
-    with span("apply.fetch"):
-        for lo in range(lo0, min(lo0 + o.shape[2], C), CB):
-            cb_eff = min(CB, C - lo, lo0 + o.shape[2] - lo)
+    hi = min(lo0 + o.shape[2], C)
+    cw = CB if strip_sink is not None else hi - lo0
+    st = _staging(o.device)
+
+    def chunks():
+        for lo in range(lo0, hi, cw):
+            w = min(cw, hi - lo)
             strip = None
             if get:
-                strip = (out[:, :, lo:lo + cb_eff] if strip_sink is None
-                         else np.empty((ny, nx, cb_eff), np.float32))
-            rows = max(1, FETCH_TMP // (4 * nx * cb_eff))
+                strip = (out[:, :, lo:lo + w] if strip_sink is None
+                         else np.empty((ny, nx, w), np.float32))
+            rows = max(1, FETCH_TMP // FETCH_CHUNKS // (world * 4 * nx * w))
             for r in range(0, n_rows, rows):
-                r1 = min(r + rows, n_rows)
-                parts = gather_bands(
-                    o[r:r1, :nx, lo - lo0:lo - lo0 + cb_eff], mesh,
-                    root_only)
-                if strip is None:
-                    continue
-                parts = parts.unflatten(0, (world, r1 - r))
-                for k in range(world):
-                    g0, g1 = k * band + r, min(k * band + r1, ny)
-                    if g0 < g1:
-                        dst = strip[g0:g1]
-                        torch.from_numpy(dst).copy_(parts[k, :g1 - g0])
-                        nbytes += dst.nbytes
-            if strip_sink is not None and get:
-                strip_sink(lo, strip)
+                yield (lo, w, strip, r, min(r + rows, n_rows),
+                       r + rows >= n_rows)
+
+    def land(lo, strip, r, parts, last, done):
+        """Scatter a staged chunk, once its copy is ``done``, into its
+        rows of the strip; hand a finished strip to the sink."""
+        if done is not None:
+            done.synchronize()
+        n = 0
+        for k in range(world):
+            g0, g1 = k * band + r, min(k * band + r + parts.shape[1], ny)
+            if g0 < g1:
+                dst = strip[g0:g1]
+                torch.from_numpy(dst).copy_(parts[k, :g1 - g0])
+                n += dst.nbytes
+        if last and strip_sink is not None:
+            strip_sink(lo, strip)
+        return n
+
+    nbytes = 0
+    with span("apply.fetch"), st.lock:
+        bufs = st.buffers(max(FETCH_TMP // FETCH_CHUNKS // 4,
+                              world * nx * cw))
+        if st.pinned:
+            st.stream.wait_stream(torch.cuda.current_stream(o.device))
+        staged = None
+        try:
+            for k, (lo, w, strip, r, r1, last) in enumerate(chunks()):
+                with torch.cuda.stream(st.stream):   # no-op on the CPU
+                    part = gather_bands(
+                        o[r:r1, :nx, lo - lo0:lo - lo0 + w], mesh,
+                        root_only)
+                    if strip is None:
+                        continue
+                    parts = bufs[k % 2][:part.numel()].view(part.shape)
+                    parts.copy_(part, non_blocking=True)
+                    done = (st.stream.record_event() if st.pinned
+                            else None)
+                if staged is not None:
+                    nbytes += land(*staged)
+                staged = (lo, strip, r, parts.unflatten(0, (world, r1 - r)),
+                          last, done)
+            if staged is not None:
+                nbytes += land(*staged)
+        finally:
+            if st.pinned:
+                st.stream.synchronize()
     count("apply.fetch_bytes", nbytes)
+    count("apply.fetch_staged_bytes", nbytes if st.pinned else 0)
 
 
 def _host_result(shape, root_only, mesh, strip_sink):
@@ -481,9 +567,9 @@ def _host_result(shape, root_only, mesh, strip_sink):
 
 
 def _fetch_bytes(mesh) -> int:
-    """Device bytes one row chunk of the fetch holds: the contiguous copy
-    of the chunk, and under a process group the gathered chunks of every
-    rank too (gather_bands)."""
+    """Device bytes the fetch holds at most: its two row chunks in flight,
+    each a contiguous copy, and under a process group the gathered chunks
+    of every rank too (gather_bands)."""
     if mesh is None or mesh.group is None:
         return FETCH_TMP
     return (1 + mesh.world) * FETCH_TMP

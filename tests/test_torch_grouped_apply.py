@@ -248,14 +248,15 @@ def test_group_width_counts_operands_and_fetch_chunk(problem, monkeypatch):
 
 @pytest.mark.parametrize("sink", [False, True])
 def test_fetch_in_row_chunks(problem, monkeypatch, sink):
-    """A fetch chunk of three rows' bytes: every strip crosses in several
-    row chunks (the last one short), into the output or to the sink, and
-    the result is the one-chunk fetch's."""
+    """A staged chunk (FETCH_TMP // FETCH_CHUNKS) of three rows of a CB
+    strip: every strip crosses in several row chunks (the sink's CB strips
+    three rows at a time, the last chunk short), into the output or to the
+    sink, and the result is the one-chunk fetch's."""
     ells, src = problem
     rg = tm.PackedSlabRegridder(list(zip(ells, COLS)), CPU)
     full = rg.apply_np(src)
     ny, nx = rg.dst_shape
-    monkeypatch.setattr(tm, "FETCH_TMP", 3 * 4 * nx * tm.CB)
+    monkeypatch.setattr(tm, "FETCH_TMP", tm.FETCH_CHUNKS * 3 * 4 * nx * tm.CB)
     assert ny % 3
     got = _apply(rg, src, "sink" if sink else "array")
     np.testing.assert_array_equal(got, full)
