@@ -643,8 +643,9 @@ def kernel_vs_plain(art, device, seed, launches_per_run, pack_geom,
     from mpassit_tpu_torch.ops.matmul_apply import (
         CH,
         PackedSlabRegridder,
-        SlabMatmulRegridder,
+        column_ranges,
         group_ranges,
+        padded,
     )
     from mpassit_tpu_torch.run.pipeline import build_weights
 
@@ -722,14 +723,15 @@ def kernel_vs_plain(art, device, seed, launches_per_run, pack_geom,
         return slab, src_pad
 
     def cover(rg, C, kw, tag):
-        """Every kernel on one operator: packed_apply, the one-hot kernel
-        for each precision, packed_gather_apply (bit for bit
+        """Every kernel on one regridder: packed_apply, the one-hot kernel
+        for each precision (onehot_apply_packed, one range per operator),
+        packed_gather_apply (bit for bit
         packed_apply's output)."""
         slab, src_pad = operands(rg, C)
         locs, ws = rg._ell_dev()
         ch, locs8, ws8 = rg._gather_dev()
         nt = dict(nty=rg.nty, ntx=rg.ntx)
-        packed = isinstance(rg, PackedSlabRegridder)
+        packed = len(kw["ranges"]) > 1
         sums = (False, True) if packed else (False,)
         ranges, rot = kw["ranges"], bool(kw.get("rotate"))
         out_numel = rg.nty * 32 * rg.ntx * 32 * C
@@ -742,7 +744,7 @@ def kernel_vs_plain(art, device, seed, launches_per_run, pack_geom,
                 slab, locs, ws, **args), cs, work=(*ell, PEAK_F32),
                 library=lambda: csr_yardstick(torch, locs, ws, ranges, rg.W,
                                               slab2.shape[0], slab2))
-        As = rg.As if packed else [rg.A]
+        As = rg.As
         dense_bytes = (out_numel + slab.numel()
                        + sum(A.numel() for A in As)) * 4
 
@@ -759,25 +761,13 @@ def kernel_vs_plain(art, device, seed, launches_per_run, pack_geom,
             work = (dense_bytes, plan.terms * 2 * rg.n_tiles * 1024 * rg.W
                     * ranges[-1][1], PEAK_BF16)
             for cs in sums:
-                if packed:
-                    args = dict(**nt, **kw, with_checksum=cs,
-                                precision=prec)
-                    run_case(
-                        "onehot_apply_packed", f"{tag}_{prec}",
-                        lambda: ok.onehot_apply_packed(rg.As, slab, **args),
-                        lambda: ok.onehot_apply_packed_plain(rg.As, slab,
-                                                             **args), cs,
-                        extra=lambda got: terms, flop=plan.flop, work=work,
-                        library=bmm)
-                else:
-                    run_case(
-                        "onehot_apply", f"{tag}_{prec}",
-                        lambda: ok.onehot_apply(rg.A, slab, **nt,
-                                                precision=prec),
-                        lambda: ok.onehot_apply_plain(rg.A, slab, **nt,
-                                                      precision=prec), cs,
-                        extra=lambda got: terms, flop=plan.flop, work=work,
-                        library=bmm)
+                args = dict(**nt, **kw, with_checksum=cs, precision=prec)
+                run_case(
+                    "onehot_apply_packed", f"{tag}_{prec}",
+                    lambda: ok.onehot_apply_packed(As, slab, **args),
+                    lambda: ok.onehot_apply_packed_plain(As, slab, **args),
+                    cs, extra=lambda got: terms, flop=plan.flop, work=work,
+                    library=bmm)
         del As, bmm
         rg._As = None
         gat = ell_work(torch, locs8, ranges, rg.W8, out_numel, ch=ch,
@@ -809,25 +799,26 @@ def kernel_vs_plain(art, device, seed, launches_per_run, pack_geom,
         keys = ("bilinear", "nearest", "conserve")
         if len(geom["cols"]) != len(keys):
             raise AssertionError(f"unexpected pack {geom}")
-        rot_spec = ((geom["rotate"], grid.cosa, grid.sina)
-                    if geom["rotate"] else None)
-        gp = PackedSlabRegridder(list(zip((W[k] for k in keys),
-                                          geom["cols"])), device,
-                                 rotate_spec=rot_spec,
+        rotate = tuple(map(tuple, geom["rotate"]))
+        gp = PackedSlabRegridder([W[k] for k in keys], device,
+                                 rotation=((grid.cosa, grid.sina)
+                                           if rotate else None),
                                  cache_dir=cfg.weights_cache_dir)
-        gw, Cp, prec = geom["gw"], gp.Cp, "split6_bf16"
+        ranges = column_ranges(geom["cols"])
+        gw, prec = geom["gw"], "split6_bf16"
+        Cp = padded(ranges[-1][1])
         slab, _ = operands(gp, Cp)
         locs, ws = gp._ell_dev()
         As = gp.As
         nt = dict(nty=gp.nty, ntx=gp.ntx)
-        rot = dict(rotate=gp.rotate, cosa=gp._cosa_t, sina=gp._sina_t)
+        rot = dict(rotate=rotate, cosa=gp._cosa_t, sina=gp._sina_t)
         full = {"packed_apply": pk.packed_apply(
-                    slab, locs, ws, ranges=gp.ranges, **nt, **rot),
+                    slab, locs, ws, ranges=ranges, **nt, **rot),
                 "onehot_apply_packed": ok.onehot_apply_packed(
-                    As, slab, ranges=gp.ranges, precision=prec, **nt,
+                    As, slab, ranges=ranges, precision=prec, **nt,
                     **rot)}
         for g in (0, Cp - gw):
-            sub, ms = group_ranges(gp.ranges, g, gw)
+            sub, ms = group_ranges(ranges, g, gw)
             kw = dict(ranges=sub, **nt, **(rot if g == 0 else {}))
             sg = slab[:, :, g:g + gw].contiguous()
             lg, wg, Ag = ([a[m] for m in ms] for a in (locs, ws, As))
@@ -880,24 +871,24 @@ def kernel_vs_plain(art, device, seed, launches_per_run, pack_geom,
             raise AssertionError(f"unexpected mercator pack {m_cols}")
         mW = build_weights(m_art.cfg, m_art.mesh, m_art.grid,
                            m_art.routing)
-        mp = PackedSlabRegridder([(mW[k], c) for k, c in zip(keys, m_cols)],
-                                 device,
+        mp = PackedSlabRegridder([mW[k] for k in keys], device,
                                  cache_dir=m_art.cfg.weights_cache_dir)
-        if mp.rotate:
-            raise AssertionError(f"mercator pack rotates: {mp.rotate}")
-        slab, _ = operands(mp, mp.Cp)
+        if mp._cosa_t is not None:
+            raise AssertionError("mercator pack has a rotation grid")
+        Cp = padded(sum(m_cols))
+        slab, _ = operands(mp, Cp)
         locs, ws = mp._ell_dev()
-        kw = dict(ranges=tuple(mp.ranges), nty=mp.nty, ntx=mp.ntx)
-        slab2 = slab.view(-1, mp.Cp)
+        kw = dict(ranges=column_ranges(m_cols), nty=mp.nty, ntx=mp.ntx)
+        slab2 = slab.view(-1, Cp)
         run_case("packed_apply",
                  f"packed_mercator_{m_art.grid.nx}x{m_art.grid.ny}"
-                 f"_cp{mp.Cp}_norot",
+                 f"_cp{Cp}_norot",
                  lambda: pk.packed_apply(slab, locs, ws, **kw),
                  lambda: pk.packed_apply_plain(slab, locs, ws, **kw), False,
                  extra=lambda got: {"cols": list(m_cols), "W": mp.W,
                                     "ranges": list(kw["ranges"])},
                  work=(*ell_work(torch, locs, kw["ranges"], mp.W,
-                                 mp.nty * 32 * mp.ntx * 32 * mp.Cp),
+                                 mp.nty * 32 * mp.ntx * 32 * Cp),
                        PEAK_F32),
                  library=lambda: csr_yardstick(torch, locs, ws,
                                                kw["ranges"], mp.W,
@@ -909,11 +900,11 @@ def kernel_vs_plain(art, device, seed, launches_per_run, pack_geom,
     # mass-wind window (0, nz, nz) first, like the main path's pack
     cols = {"bilinear": 1024 - 2 * 16, "nearest": 16, "conserve": 16}
     pack = PackedSlabRegridder(
-        [(W[k], c) for k, c in cols.items()], device,
-        rotate_spec=(((0, nz, nz),), grid.cosa, grid.sina),
+        [W[k] for k in cols], device, rotation=(grid.cosa, grid.sina),
         cache_dir=cfg.weights_cache_dir)
-    cover(pack, pack.Cp, dict(ranges=tuple(pack.ranges), rotate=pack.rotate,
-                              cosa=pack._cosa_t, sina=pack._sina_t),
+    cover(pack, 1024, dict(ranges=column_ranges(cols.values()),
+                           rotate=((0, nz, nz),), cosa=pack._cosa_t,
+                           sina=pack._sina_t),
           "packed_conus_cp1024_rot")
     del pack
     torch.cuda.empty_cache()
@@ -921,7 +912,7 @@ def kernel_vs_plain(art, device, seed, launches_per_run, pack_geom,
     torch.cuda.empty_cache()
     mercator_case(*mercator)
     torch.cuda.empty_cache()
-    edge = SlabMatmulRegridder(W["edge1"], device,
+    edge = PackedSlabRegridder([W["edge1"]], device,
                                cache_dir=cfg.weights_cache_dir)
     cover(edge, 128, dict(ranges=((0, 128),)), "edge1_restagger")
     del edge
@@ -929,7 +920,8 @@ def kernel_vs_plain(art, device, seed, launches_per_run, pack_geom,
 
     # the ELL-built split_bf16 variants on the bilinear operator at 512
     # columns, the shape of the kernel_variants phase
-    bil = SlabMatmulRegridder(W["bilinear"], device, precision="split_bf16",
+    bil = PackedSlabRegridder([W["bilinear"]], device,
+                              precision="split_bf16",
                               cache_dir=cfg.weights_cache_dir)
     slab, _ = operands(bil, 512)
     (loc,), (wt,) = bil._ell_dev()
@@ -1112,14 +1104,13 @@ def sass_counts(so, source):
 
 # ----------------------------------------------------------------- main ----
 
-#: kernel -> (source, the TPU kernel it replaces)
+#: kernel -> (source, the TPU kernels it replaces); onehot_apply_packed
+#: stands for fused_apply_packed with As= and, at one range, fused_apply
 KERNELS = {
     "packed_apply": ("mpassit_tpu_torch/csrc/packed_apply.cu",
                      "mpassit_tpu/ops/pallas_matmul.py:482"),
     "onehot_apply_packed": ("mpassit_tpu_torch/csrc/onehot_apply.cu",
-                            "mpassit_tpu/ops/pallas_matmul.py:482"),
-    "onehot_apply": ("mpassit_tpu_torch/csrc/onehot_apply.cu",
-                     "mpassit_tpu/ops/pallas_matmul.py:119"),
+                            "mpassit_tpu/ops/pallas_matmul.py:482,119"),
     "packed_gather_apply": ("mpassit_tpu_torch/csrc/packed_gather.cu",
                             "mpassit_tpu/ops/pallas_matmul.py:386"),
     "write_wall": ("mpassit_tpu_torch/csrc/write_wall.cu", "bench.py:238"),
@@ -1130,7 +1121,7 @@ KERNELS = {
 }
 #: kernel -> the phase whose launches the kernels line reports
 PHASE_OF = {"packed_apply": "ell", "onehot_apply_packed": "onehot",
-            "onehot_apply": "onehot", "packed_gather_apply": "gather",
+            "packed_gather_apply": "gather",
             "write_wall": "write_wall",
             "ell_split_apply_v1": "kernel_variants",
             "ell_split_apply_v2": "kernel_variants"}
@@ -1172,23 +1163,18 @@ def _zero_counters():
         d.update(dict.fromkeys(d, 0))
 
 
-def expected_launches(route, calls, fetch):
+def expected_launches(route, calls):
     """Kernel launches the route owes for the recorded applies
-    ([kind, Cp, gw]): one per packed apply, or one per column group of
-    the width gw the regridder's grouped apply was called with; one per
-    FETCH-column group of a slab apply; except on the gather route, where
-    a slab apply of at most FETCH columns is one gather launch (and a
-    wider one takes the default route)."""
+    ([kind, Cp, gw]), union or one operator alike: one per apply, or one
+    per column group of the width gw the grouped apply was called with;
+    one gather launch per apply on the gather route, which is never
+    grouped."""
     e = dict.fromkeys(KERNELS, 0)
-    for kind, Cp, gw in calls:
-        if kind == "packed":
-            n = -(-Cp // gw) if gw else 1
-        else:
-            n = -(-Cp // fetch)
+    for _, Cp, gw in calls:
+        n = -(-Cp // gw) if gw else 1
         if route == "onehot":
-            e["onehot_apply_packed" if kind == "packed"
-              else "onehot_apply"] += n
-        elif route == "gather" and (kind == "packed" or Cp <= fetch):
+            e["onehot_apply_packed"] += n
+        elif route == "gather":
             e["packed_gather_apply"] += 1
         else:
             e["packed_apply"] += n
@@ -1326,7 +1312,6 @@ def streamed_phase(pipeline, nml, default_art, device, seed, reduced,
     import numpy as np
     import torch
 
-    from mpassit_tpu_torch.ops import matmul_apply
     from mpassit_tpu_torch.ops import packed_kernel as pk
     from mpassit_tpu_torch.run.pipeline import build_weights
 
@@ -1359,7 +1344,7 @@ def streamed_phase(pipeline, nml, default_art, device, seed, reduced,
         raise SystemExit(f"main_path_streamed failed: rc={rc}")
     art, rec = arts[0], made[0]
     art.regridders.clear()
-    expected = expected_launches("ell", calls, matmul_apply.FETCH)
+    expected = expected_launches("ell", calls)
     # the vertex-located fields against a float64 evaluation
     W = build_weights(art.cfg, art.mesh, art.grid, art.routing)
     vert = {}
@@ -1474,8 +1459,7 @@ def sharded_phase(pipeline, nml, nml_sharded, default_art, device, seed,
         return art, {"rc": rc, "t_s": t_main, "stages_s": art.timings.stages,
                      "interp_data_split_s": interp_split(art, split),
                      "launches": launches,
-                     "expected_launches": expected_launches(
-                         "ell", calls, matmul_apply.FETCH),
+                     "expected_launches": expected_launches("ell", calls),
                      "applies": list(calls), "plain_calls": plain_calls,
                      "peak_device_gb": peak}
 
@@ -1665,7 +1649,6 @@ def profiled_phase(pipeline, nml, default_art, arts, calls, reduced):
 
     import torch
 
-    from mpassit_tpu_torch.ops import matmul_apply
     from mpassit_tpu_torch.tools import trace_summary as ts
 
     prof_dir = os.path.join(WORK, "profile")
@@ -1691,7 +1674,7 @@ def profiled_phase(pipeline, nml, default_art, arts, calls, reduced):
         raise SystemExit(f"main_path_profiled failed: rc={rc}")
     art = arts[0]
     art.regridders.clear()
-    expected = expected_launches("ell", calls, matmul_apply.FETCH)
+    expected = expected_launches("ell", calls)
     # the directory was emptied before the run: its one trace
     (path,) = [os.path.join(prof_dir, n) for n in os.listdir(prof_dir)]
     t0 = time.perf_counter()
@@ -1963,7 +1946,6 @@ def matrix_phase(pipeline, nml, device, seed, reduced, arts, calls, packs,
     import torch
 
     from mpassit_tpu_torch.constants import PROJ_LC
-    from mpassit_tpu_torch.ops import matmul_apply
 
     t_phase = time.perf_counter()
     mercator = None
@@ -1989,7 +1971,7 @@ def matrix_phase(pipeline, nml, device, seed, reduced, arts, calls, packs,
             emit({**line, "ok": False})
             raise SystemExit(f"main_path_matrix {name} failed: rc={rc}")
         art.regridders.clear()
-        expected = expected_launches("ell", calls, matmul_apply.FETCH)
+        expected = expected_launches("ell", calls)
         lc = art.cfg.proj_code == PROJ_LC
         rotated = [bool(p["rotate"]) for p in packs]
         t0 = time.perf_counter()
@@ -2186,36 +2168,36 @@ def main(argv=None) -> int:
         arts.append(art)
         return art
 
-    def record(cls, kind):
-        """Each apply as [kind, Cp, group width (0: one pass)]."""
-        orig = cls.apply_np
+    apply_np = matmul_apply.PackedSlabRegridder.apply_np
 
-        def wrapped(self, src, *a, **kw):
-            blocks = src if isinstance(src, (list, tuple)) else [src]
-            C = sum(1 if np.ndim(b) == 1 else np.shape(b)[1]
-                    for b in blocks)
-            calls.append([kind, C + (-C) % matmul_apply.LANE, 0])
-            if kind == "packed":
-                packs.append({"cols": list(self.col_counts), "W": self.W,
-                              "rotate": [list(w) for w in self.rotate]})
-            return orig(self, src, *a, **kw)
-        cls.apply_np = wrapped
+    def recorded(self, src, cols=None, rotate=(), **kw):
+        """Each apply as [kind, Cp, group width (0: one pass)]: "packed"
+        for the union of the methods, which brings its column counts,
+        "slab" for one operator's."""
+        blocks = src if isinstance(src, (list, tuple)) else [src]
+        C = sum(1 if np.ndim(b) == 1 else np.shape(b)[1] for b in blocks)
+        calls.append(["slab" if cols is None else "packed",
+                      matmul_apply.padded(C), 0])
+        if cols is not None:
+            packs.append({"cols": list(cols), "W": self.W,
+                          "rotate": [list(w) for w in rotate]})
+        return apply_np(self, src, cols, rotate, **kw)
 
     width = matmul_apply.PackedSlabRegridder._grouped_width
 
-    def width_wrapped(self):
+    def width_wrapped(self, Cp, rotate=()):
         """The group width the regridder chose for the apply being
         recorded, and its pack's geometry."""
-        gw = width(self)
+        gw = width(self, Cp, rotate)
         if gw:
             calls[-1][2] = gw
-            pack_geom.update(cols=list(self.col_counts), rotate=self.rotate,
+        if gw and calls[-1][0] == "packed":
+            pack_geom.update(cols=packs[-1]["cols"], rotate=tuple(rotate),
                              gw=gw)
         return gw
 
     pipeline.run_pipeline = observed_run
-    record(matmul_apply.PackedSlabRegridder, "packed")
-    record(matmul_apply.SlabMatmulRegridder, "slab")
+    matmul_apply.PackedSlabRegridder.apply_np = recorded
     matmul_apply.PackedSlabRegridder._grouped_width = width_wrapped
     # the band gather of the sharded phase, bracketed by synchronizes
     split = {}
@@ -2245,7 +2227,7 @@ def main(argv=None) -> int:
         t_main = time.perf_counter() - t0
         launches, plain_calls = _counters()
         art = arts[0] if arts else None
-        expected = expected_launches(route, calls, matmul_apply.FETCH)
+        expected = expected_launches(route, calls)
         peaks[route] = torch.cuda.max_memory_allocated(device) / 1e9
         emit({"phase": phase, "switches": switches, "rc": rc, "t_s": t_main,
               "stages_s": art.timings.stages if art else {},

@@ -67,12 +67,12 @@
 // W = 40, K = 3, Cp = 512) the output write, 4.06 GB, with 159 MB of slab
 // and 48 MB of loc/w: >= 1.26 ms; the three products over K = 48 are
 // 2.9e11 FLOP, >= 0.30 ms. Measured there on random operands
-// (tools/split_probe.py; NVIDIA H100 80GB HBM3, 700.00 W): v1 3.47-3.53
-// ms, v2 2.29-2.32 (CC 128) and 3.17-3.28 (CC 256), torch.sparse.mm
-// 4.48, the store-only write wall 1.28-1.30; the CUDA-core design before
-// it 9.41-9.52 and 12.50-12.78. Neither floor binds: without the output
-// stores, the products or the slab loads (the probe builds below) v2 at
-// CC 128 still takes 2.32, 1.96 and 2.16 ms, so its time is each 32-row
+// (NVIDIA H100 80GB HBM3, 700.00 W): v1 3.47-3.53 ms, v2 2.29-2.32
+// (CC 128) and 3.17-3.28 (CC 256), torch.sparse.mm 4.48, the store-only
+// write wall 1.28-1.30; the CUDA-core design before it 9.41-9.52 and
+// 12.50-12.78. Neither floor binds: built without the output stores, the
+// products or the slab loads, v2 at CC 128 still took 2.32, 1.96 and
+// 2.16 ms, so its time is each 32-row
 // step's serial chain (two barriers, the split through shared memory, the
 // wgmma wait) at two 128-thread blocks per SM (190 registers, 96 KB);
 // v1 runs that chain in 4x as many blocks, each building its A windows.
@@ -97,12 +97,6 @@
 #define EXTRA 8           // row padding (floats) of the staged f32 tile
 #define SMEM_MAX 232448
 #define A_CHUNK (PTS * 32)  // one k16 chunk of one bf16 part of A
-// A diagnostic build for tools/split_probe.py --probe (the output is then
-// not the function): 1 skips the output stores, 2 the products, 3 the
-// slab loads (zeros instead)
-#ifndef ELL_SPLIT_PROBE
-#define ELL_SPLIT_PROBE 0
-#endif
 
 // byte offset of (row r of the operand, K index k of the chunk) in one k16
 // chunk of a bf16 part: core matrix (r / 8, k / 8), row r % 8
@@ -207,7 +201,7 @@ __device__ __forceinline__ void fetch_step(float* F, const float* src,
   constexpr int PIECES = COLS / 4;   // 16-byte pieces of a row
   for (int i = threadIdx.x; i < KS * PIECES; i += Geo<COLS>::THREADS) {
     const int r = i / PIECES, c4 = i % PIECES;
-    const bool in = k0 + r < W && ELL_SPLIT_PROBE != 3;
+    const bool in = k0 + r < W;
     cp_async16(F + r * COLS + 4 * c4,
                in ? src + (int64_t)(k0 + r) * Cp + 4 * c4 : src, in ? 16 : 0);
   }
@@ -244,7 +238,7 @@ __device__ __forceinline__ void products(float (&big)[64], float (&small)[64],
   constexpr int S_CHUNK = Geo<COLS>::S_CHUNK;
   const int sn = (threadIdx.x >> 7) * (128 / 8) * SBO;   // the N tile
   wgmma_fence();
-  for (int kk = 0; kk < (ELL_SPLIT_PROBE == 2 ? 0 : nk); ++kk) {
+  for (int kk = 0; kk < nk; ++kk) {
     const uint8_t* ah = a + kk * A_CHUNK;
     const uint8_t* sh = s + kk * S_CHUNK + sn;
     wgmma_m64n128k16(big, smem_desc(ah, LBO, SBO), smem_desc(sh, LBO, SBO));
@@ -287,8 +281,7 @@ __device__ __forceinline__ void epilogue(float* E, const float (&big)[64],
     const int64_t orow =
         ((int64_t)(ty * TY + p / TX) * nxp + (tx * TX + p % TX)) * Cp;
     const float4 x = *reinterpret_cast<const float4*>(E + pi * EP + c);
-    if (ELL_SPLIT_PROBE != 1 || x.x == 12345.0f)   // keep the reads
-      *reinterpret_cast<float4*>(out + orow + cbase + c) = x;
+    *reinterpret_cast<float4*>(out + orow + cbase + c) = x;
   }
 }
 

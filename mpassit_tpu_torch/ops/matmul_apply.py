@@ -4,15 +4,17 @@ The target grid is cut into 32x32 tiles. Per tile, the host pack
 (``_pack_union``, copied verbatim from the JAX package) lists the sorted
 union of source rows the tile's ELL entries reference (``slab_idx``, W
 rows) and re-expresses each entry as a local row index into that list
-(``loc``). Three apply routes, chosen when a regridder is built from the
-JAX package's switches:
+(``loc``). ``PackedSlabRegridder`` holds the pack of one operator, or of
+the union of several over one source and one target, and applies it by
+one of three routes, chosen when it is built from the JAX package's
+switches:
 
 - default: ``slab = src[slab_idx]`` (one row gather on the device), then
   ``packed_apply`` (ops/packed_kernel.py), fed the ELL arrays directly, f32;
 - ``MPASSIT_ELL_KERNEL=0``, the one-hot route: the same gather, then
-  ``onehot_apply`` / ``onehot_apply_packed`` (ops/onehot_kernel.py) with
-  the f32 one-hot operator ``A`` that ``_build_A_T`` builds on the device,
-  computing the TPU's term set of ``precision``;
+  ``onehot_apply_packed`` (ops/onehot_kernel.py) with the f32 one-hot
+  operators that ``_build_A_T`` builds on the device, computing the TPU's
+  term set of ``precision``;
 - ``MPASSIT_GATHER_KERNEL=1``, the in-kernel-gather route:
   ``packed_gather_apply`` (ops/gather_kernel.py) reads the slab rows from
   the source through the chunked-run layout of ``_chunk_slab``; no slab is
@@ -26,16 +28,15 @@ another. The JAX package's VMEM checks (``ell_fits_vmem``,
 have no counterpart: the switches alone pick the route. On the default
 and gather routes every ``precision`` runs the same f32 arithmetic.
 
-Both engines take host sources as one (n_src, C) array or as a list of
+The regridder takes host sources as one (n_src, C) array or as a list of
 column blocks, assembled on the device without a host concatenation.
-When one full-width pass of the packed engine would not fit the device
-budget (``device_budget``), it runs in column groups, each uploaded,
-applied by one kernel launch, fetched and freed in turn
-(``PackedSlabRegridder._grouped_width``); the result is the full-width
-one, bit for bit.
+When one full-width pass would not fit the device budget
+(``device_budget``), it runs in column groups, each uploaded, applied by
+one kernel launch, fetched and freed in turn (``_grouped_width``); the
+result is the full-width one, bit for bit.
 
 With a ``mesh`` (parallel/sharding.GridMesh; the pipeline's
-``n_device_shards``), both engines run tile-row sharded, the counterpart
+``n_device_shards``), the regridder runs tile-row sharded, the counterpart
 of the ``shard_map`` branches of the JAX package's ``_fused_full``: the
 tile rows are padded to a multiple of the world size (zero tiles), each
 rank keeps ``slab_idx``, ``loc``, ``loc_w``, its one-hot operators and
@@ -63,6 +64,7 @@ columns x 4; slab rows are W, or W8 on the gather route) and
 from __future__ import annotations
 
 import hashlib
+import itertools
 import os
 import threading
 
@@ -74,7 +76,7 @@ from ..parallel.multihost import gather_bands
 from ..parallel.sharding import band_rows
 from ..spans import count, span
 from .gather_kernel import CH, packed_gather_apply
-from .onehot_kernel import onehot_apply, onehot_apply_packed
+from .onehot_kernel import onehot_apply_packed
 from .packed_kernel import _validate_rotate, packed_apply
 
 TY = 32
@@ -84,18 +86,14 @@ TILE = TY * TX
 LANE = 128
 #: columns per host-fetch strip
 CB = 256
-#: columns per kernel launch in SlabMatmulRegridder.apply_np: bounds device
-#: residency to one (nyp, nxp, FETCH) output group
+#: the column-group width the grouped apply starts from
+#: (``PackedSlabRegridder._grouped_width``): a source of at most FETCH
+#: padded columns is never grouped
 FETCH = 512
-#: device bytes a host fetch may hold, which the grouped apply's budget
-#: keeps free (``_fetch_bytes``): a strip crosses in row chunks, two in
-#: flight (``_fetch_strips``), each first copied from a strided slice into
-#: a contiguous device buffer (a whole CONUS strip would be 1.95 GB)
-FETCH_TMP = 1 << 28
-#: a row chunk holds at most FETCH_TMP // FETCH_CHUNKS bytes (16 MiB), as
-#: does each of the two page-locked staging buffers it crosses through:
+#: device-to-host bytes of one row chunk of a fetch (``_fetch_strips``),
+#: as of each of the two page-locked staging buffers it crosses through:
 #: resident host memory kept small, copies still at the pinned rate
-FETCH_CHUNKS = 16
+FETCH_CHUNK = 1 << 24
 #: share of a CUDA device's free bytes the grouped apply plans on; the rest
 #: is left to the caching allocator's rounding and fragmentation
 FREE_SHARE = 0.9
@@ -473,9 +471,9 @@ def _fetch_strips(o, C, ny, nx, lo0, root_only, out, strip_sink,
     """Fetch columns [lo0, lo0 + o's width) ∩ [0, C) of a device result to
     the host: into ``out`` as one strip of all those columns, or to
     ``strip_sink`` in CB-column strips. A strip crosses in row chunks of
-    at most FETCH_TMP / FETCH_CHUNKS bytes (every rank's part together) or
-    one row, each copied from its strided slice into the device's staging
-    buffers (``_Staging``) in turn, chunk k into buffer k mod 2. On a CUDA
+    at most FETCH_CHUNK bytes (every rank's part together) or one row,
+    each copied from its strided slice into the device's staging buffers
+    (``_Staging``) in turn, chunk k into buffer k mod 2. On a CUDA
     device the copies run on the side stream, after the work queued
     before the fetch, while the host scatters chunk k - 1 out of the other
     buffer; the side stream is drained before the fetch returns, so the
@@ -502,7 +500,7 @@ def _fetch_strips(o, C, ny, nx, lo0, root_only, out, strip_sink,
             if get:
                 strip = (out[:, :, lo:lo + w] if strip_sink is None
                          else np.empty((ny, nx, w), np.float32))
-            rows = max(1, FETCH_TMP // FETCH_CHUNKS // (world * 4 * nx * w))
+            rows = max(1, FETCH_CHUNK // (world * 4 * nx * w))
             for r in range(0, n_rows, rows):
                 yield (lo, w, strip, r, min(r + rows, n_rows),
                        r + rows >= n_rows)
@@ -525,7 +523,7 @@ def _fetch_strips(o, C, ny, nx, lo0, root_only, out, strip_sink,
 
     nbytes = 0
     with span("apply.fetch"), st.lock:
-        bufs = st.buffers(max(FETCH_TMP // FETCH_CHUNKS // 4,
+        bufs = st.buffers(max(FETCH_CHUNK // 4,
                               world * nx * cw))
         if st.pinned:
             st.stream.wait_stream(torch.cuda.current_stream(o.device))
@@ -566,29 +564,74 @@ def _host_result(shape, root_only, mesh, strip_sink):
     return np.empty(shape, np.float32)
 
 
-def _fetch_bytes(mesh) -> int:
-    """Device bytes the fetch holds at most: its two row chunks in flight,
-    each a contiguous copy, and under a process group the gathered chunks
-    of every rank too (gather_bands)."""
+def _fetch_bytes(mesh, row_bytes=0) -> int:
+    """Device bytes a fetch of strips whose rows are at most ``row_bytes``
+    (one rank's) holds at most: its two row chunks in flight, each a
+    contiguous device copy of every rank's part together, FETCH_CHUNK
+    bytes or one row of every rank where that is more (``_fetch_strips``
+    takes at least one row), and under a process group each chunk's own
+    part too, made contiguous for the gather (gather_bands)."""
+    world = 1 if mesh is None else mesh.world
+    chunk = max(FETCH_CHUNK, world * row_bytes)
     if mesh is None or mesh.group is None:
-        return FETCH_TMP
-    return (1 + mesh.world) * FETCH_TMP
+        return 2 * chunk
+    return 2 * (chunk + -(-chunk // world))
 
 
-class _Operator:
-    """What both regridders share: the route, the pack (banded under a
-    mesh), the lazily built device operands of each route (ELL arrays,
-    one-hot operators, the gather layout) and the source upload.
+def padded(C) -> int:
+    """C columns padded to the kernels' LANE-column blocks."""
+    return C + (-C) % LANE
 
-    ``nty``/``ntx`` are the grid's tile rows and columns; ``nty_l`` the
-    tile rows this rank launches over (``nty`` without a mesh), ``nty_p``
-    the padded total (``nty_l`` times the world size), ``n_tiles`` this
-    rank's tiles (``nty_l * ntx``)."""
 
-    def __init__(self, device, precision, cache_dir, fps, Ks, pack,
-                 mesh=None):
+def column_ranges(cols) -> tuple:
+    """Column counts -> the consecutive (lo, hi) ranges they take."""
+    ends = tuple(itertools.accumulate(int(c) for c in cols))
+    return tuple(zip((0,) + ends[:-1], ends))
+
+
+class PackedSlabRegridder:
+    """One or more ELL operators over the SAME source row space and target
+    grid, tile-packed together and applied by the kernel of the route (see
+    the module docstring), one launch per column group.
+
+    The operator holds what depends only on ``ells``, the device and the
+    mesh: the union pack (per tile the sorted union of the operators'
+    unique source rows, ``slab_idx``, and each entry's local index into
+    it), the route and its device operands (built on first use) and, with
+    ``rotation`` ((cosa, sina) host arrays of the target grid), the
+    rotation grid tile-blocked for the kernels. A call brings the data: a
+    source whose columns are the methods' in ``ells`` order, ``cols`` of
+    each (None: one operator, every column), and the Q4 wind rotation's
+    windows ``rotate``, (cu, cv, n) packed-column triples (u levels at
+    [cu, cu + n), v at [cv, cv + n)), applied inside the kernel on every
+    route. A window that does not fit one 256-column sub-chunk of one
+    method's range raises ValueError before anything is uploaded, as in
+    the JAX package, so that both packages take the same rotation route.
+
+    Raises ValueError when a tile references more than W_CAP unique
+    source rows (the caller falls back to ops.apply.Regridder). With a
+    ``mesh`` each rank applies its band of tile rows (see the module
+    docstring): ``nty``/``ntx`` are the grid's tile rows and columns,
+    ``nty_l`` the tile rows this rank launches over (``nty`` without a
+    mesh), ``nty_p`` the padded total (``nty_l`` times the world size),
+    ``n_tiles`` this rank's tiles (``nty_l * ntx``)."""
+
+    #: apply_np accepts a list of column blocks (device-side assembly)
+    accepts_blocks = True
+
+    def __init__(self, ells, device, precision: str = "highest",
+                 rotation=None, cache_dir=None, mesh=None):
         if precision not in PRECISIONS:
             raise ValueError(f"precision must be one of {PRECISIONS}")
+        if len({e.n_src for e in ells}) != 1:
+            raise ValueError("packed operators must share one source space")
+        if len({tuple(e.dst_shape) for e in ells}) != 1:
+            raise ValueError("packed operators must share the target grid")
+        if len(ells[0].dst_shape) != 2:
+            raise ValueError("PackedSlabRegridder needs a 2-D dst_shape")
+        ny, nx = ells[0].dst_shape
+        self.n_src = ells[0].n_src
+        self.dst_shape = (ny, nx)
         self.precision = precision
         self.device = torch.device(device)
         self.cache_dir = cache_dir
@@ -598,7 +641,20 @@ class _Operator:
         self.route = _route_from_env()
         if mesh is not None and self.route == "gather":
             self.route = "ell"
-        slab_idx, loc, loc_w, self.W, self.nty, self.ntx, _ = pack
+        self._Ks = [e.idx.shape[1] for e in ells]
+        self._fps = tuple(e.fingerprint() for e in ells) if cache_dir else None
+
+        # union slab over the K-concatenation of all methods; per-method
+        # loc/w slices over it follow the K-concatenation order
+        def _cat():
+            return (np.concatenate(
+                        [np.asarray(e.idx, np.int64) for e in ells], axis=1),
+                    np.concatenate(
+                        [np.asarray(e.w, np.float64) for e in ells], axis=1))
+
+        slab_idx, loc, loc_w, self.W, self.nty, self.ntx, _ = (
+            _pack_union_cached(_cat, ny, nx, self.n_src, cache_dir=cache_dir,
+                               ell_fps=self._fps))
         self.nty_l = self.nty if mesh is None else -(-self.nty // mesh.world)
         self.nty_p = self.nty_l * (1 if mesh is None else mesh.world)
         self.n_tiles = self.nty_l * self.ntx
@@ -606,13 +662,31 @@ class _Operator:
             slab_idx, loc, loc_w = (band_rows(np.asarray(a), mesh,
                                               self.n_tiles)
                                     for a in (slab_idx, loc, loc_w))
-        self._fps, self._Ks = fps, list(Ks)
         self._slab_idx_host = slab_idx
         self._loc_host, self._w_host = loc, loc_w
         self.slab_idx = torch.tensor(np.asarray(slab_idx).reshape(-1),
                                      device=self.device)
         self._locws = self._As = self._gather = None
         self.W8 = None
+
+        # in-kernel wind rotation (quirk Q4): cosa/sina tile-blocked
+        # (n_tiles, TY, TX) and padded with the IDENTITY rotation (cosa=1,
+        # sina=0) outside the data region — zero padding would put 0/0
+        # NaNs in the padded rows; this rank's band of tile rows
+        self._cosa_t = self._sina_t = None
+        if rotation is not None:
+            cosa, sina = rotation
+            cs = np.zeros((self.nty_p * TY, self.ntx * TX, 2), np.float32)
+            cs[:, :, 0] = 1.0
+            cs[:ny, :nx, 0] = np.asarray(cosa, np.float32).reshape(ny, nx)
+            cs[:ny, :nx, 1] = np.asarray(sina, np.float32).reshape(ny, nx)
+            t0 = (0 if mesh is None else mesh.rank) * self.n_tiles
+            cs_t = _tile_block(cs, self.nty_p, self.ntx, 2).reshape(
+                self.nty_p * self.ntx, TY, TX, 2)[t0:t0 + self.n_tiles]
+            self._cosa_t = torch.from_numpy(
+                np.ascontiguousarray(cs_t[..., 0])).to(self.device)
+            self._sina_t = torch.from_numpy(
+                np.ascontiguousarray(cs_t[..., 1])).to(self.device)
 
     def _ell_dev(self):
         """Per-method (n_tiles, K, TILE) loc/w device tensors."""
@@ -663,330 +737,169 @@ class _Operator:
                                 np.float32, self.device))
         return self._gather
 
-    def _count_slab(self, cols, rows=None):
-        """Count one launch's ``apply.slab_bytes``: this rank's tiles x
-        ``rows`` slab rows (W unless given) x ``cols`` columns x 4."""
-        count("apply.slab_bytes",
-              4 * self.n_tiles * (rows or self.W) * int(cols))
+    @property
+    def pad_rows(self) -> int:
+        """Zero rows past n_src in an uploaded source: the CH rows the
+        gather route's last chunks may read."""
+        return CH if self.route == "gather" else 0
 
     def _slab(self, src_dev):
-        """(n_src[+CH], Cp) -> (n_tiles, W, Cp): the one row gather."""
+        """(n_src + pad_rows, Cp) -> (n_tiles, W, Cp): the one row gather."""
         return torch.index_select(src_dev, 0, self.slab_idx).view(
             self.n_tiles, self.W, src_dev.shape[1])
 
-    def _upload(self, src, w, lo=0):
-        """Columns [lo, lo + w) of a host source -> device, with the CH pad
-        rows the gather route's last chunks read."""
-        return _src_window_to_device(
-            src, lo, w, self.device,
-            pad_rows=CH if self.route == "gather" else 0)
-
-
-class SlabMatmulRegridder(_Operator):
-    """One tile-packed ELL operator, applied with one column range by the
-    kernel of the route (see the module docstring).
-
-    Raises ValueError when a tile references more than W_CAP unique source
-    rows (the caller falls back to ops.apply.Regridder). With a ``mesh``
-    each rank applies its band of tile rows (see the module docstring).
-    """
-
-    #: apply_np accepts a list of column blocks (device-side assembly)
-    accepts_blocks = True
-
-    def __init__(self, ell, device, precision: str = "highest",
-                 cache_dir=None, mesh=None):
-        if len(ell.dst_shape) != 2:
-            raise ValueError("SlabMatmulRegridder needs a 2-D dst_shape")
-        ny, nx = ell.dst_shape
-        K = ell.idx.shape[1]
-        self.n_src = ell.n_src
-        self.dst_shape = (ny, nx)
-        fps = (ell.fingerprint(),) if cache_dir else None
-        pack = _pack_union_cached(
-            lambda: (np.asarray(ell.idx, dtype=np.int64),
-                     np.asarray(ell.w, dtype=np.float64)),
-            ny, nx, self.n_src, cache_dir=cache_dir, ell_fps=fps)
-        super().__init__(device, precision, cache_dir, fps, (K,), pack, mesh)
-        self.duplication = self.n_tiles * self.W / max(ell.n_src, 1)
-
-    @property
-    def A(self):
-        """The f32 one-hot operator (n_tiles, W, TILE), built on first
-        use (one-hot route)."""
-        return self.As[0]
-
-    def _apply(self, slab):
-        """(n_tiles, W, Cp) slab -> (nyp, nxp, Cp), default or one-hot."""
-        self._count_slab(slab.shape[2])
-        if self.route == "onehot":
-            return onehot_apply(self.A, slab, nty=self.nty_l, ntx=self.ntx,
-                                precision=self.precision)
-        locs, ws = self._ell_dev()
-        return packed_apply(slab, locs, ws, ranges=((0, slab.shape[2]),),
-                            nty=self.nty_l, ntx=self.ntx)
-
-    def _gather_apply(self, src_dev):
-        """(n_src + CH, Cp) source -> (nyp, nxp, Cp), slab rows gathered
-        in the kernel."""
-        ch, locs, ws = self._gather_dev()
-        Cp = src_dev.shape[1]
-        self._count_slab(Cp, self.W8)
-        return packed_gather_apply(src_dev, ch, locs, ws, W8=self.W8,
-                                   ranges=((0, Cp),), nty=self.nty_l,
-                                   ntx=self.ntx)
-
-    def __call__(self, src_dev):
-        """src (n_src, C) tensor on the operator's device. Returns the
-        (nyp, nxp, C) device result (tile-padded grid); under a mesh this
-        rank's band of it, (nty_l * 32, nxp, C)."""
-        if src_dev.dim() == 1:
-            src_dev = src_dev[:, None]
-        C = src_dev.shape[1]
-        pad = (-C) % LANE
+    def _kernel(self):
+        """The route's kernel over its device operands, built here on first
+        use: (launch, operands, slab rows). ``launch(src_dev, ms, **kw)``
+        applies the methods ``ms`` to an (n_src + pad_rows, w) device
+        window by one launch; the slab rows are what each tile stages from
+        the source, W (W8 on the gather route). The one place that tells
+        the routes apart, besides ``pad_rows``."""
         if self.route == "gather":
-            src_dev = torch.nn.functional.pad(src_dev.float(), (0, pad, 0, CH))
-            return self._gather_apply(src_dev)[:, :, :C]
-        if pad:
-            src_dev = torch.nn.functional.pad(src_dev, (0, pad))
-        return self._apply(self._slab(src_dev.float()))[:, :, :C]
+            ch, locs, ws = self._gather_dev()
+            return (lambda src_dev, ms, **kw: packed_gather_apply(
+                        src_dev, ch, [locs[m] for m in ms],
+                        [ws[m] for m in ms], W8=self.W8, **kw),
+                    (ch, *locs, *ws), self.W8)
+        if self.route == "onehot":
+            As = self.As
+            return (lambda src_dev, ms, **kw: onehot_apply_packed(
+                        [As[m] for m in ms], self._slab(src_dev),
+                        precision=self.precision, **kw),
+                    tuple(As), self.W)
+        locs, ws = self._ell_dev()
+        return (lambda src_dev, ms, **kw: packed_apply(
+                    self._slab(src_dev), [locs[m] for m in ms],
+                    [ws[m] for m in ms], **kw),
+                (*locs, *ws), self.W)
 
-    def apply_np(self, src, root_only: bool = False, strip_sink=None):
-        """Host-array apply: one slab gather, then one kernel launch per
-        FETCH-column group, fetched to the host in CB strips before the
-        next group allocates (device residency is one group's output). On
-        the gather route a source of at most FETCH columns is one gather
-        kernel launch, as in the JAX package; a wider one takes the
-        default route.
+    def _ranges(self, C, cols, rotate):
+        """The methods' column ranges and the padded width Cp of a
+        C-column source laid out as ``cols``, the rotation windows checked
+        against them."""
+        ranges = column_ranges([C] if cols is None else cols)
+        if len(ranges) != len(self._Ks) or ranges[-1][1] != C:
+            raise ValueError(
+                f"source has {C} columns, the call gives {cols} for "
+                f"{len(self._Ks)} packed operators")
+        Cp = padded(C)
+        if rotate:
+            if self._cosa_t is None:
+                raise ValueError("rotate windows need the operator built "
+                                 "with a rotation grid")
+            _validate_rotate(rotate, ranges, Cp)
+        return ranges, Cp
 
-        ``src`` may be a list of column blocks. With ``strip_sink``, each
-        fetched (ny, nx, cb) strip is handed to ``strip_sink(col_lo,
-        strip)`` instead of being assembled, and None is returned."""
-        def ncols(b):
-            return 1 if np.ndim(b) == 1 else np.shape(b)[1]
-
-        is_blocks = isinstance(src, (list, tuple))
-        squeeze = not is_blocks and np.ndim(src) == 1
-        C = sum(ncols(b) for b in src) if is_blocks else ncols(src)
-        Cp = C + ((-C) % LANE)
-        ny, nx = self.dst_shape
-        out = _host_result((ny, nx, C), root_only, self.mesh, strip_sink)
-        src_dev = self._upload(src, Cp)
-        if self.route == "gather" and Cp <= FETCH:
-            count("apply.groups", 1)
-            o = self._gather_apply(src_dev)
-            _fetch_strips(o, C, ny, nx, 0, root_only, out, strip_sink,
-                          self.mesh)
-        else:
-            slab = self._slab(src_dev)
-            del src_dev
-            for g in range(0, Cp, FETCH):
-                gw = min(FETCH, Cp - g)
-                count("apply.groups", 1)
-                o = self._apply(slab[:, :, g:g + gw].contiguous())
-                _fetch_strips(o, C, ny, nx, g, root_only, out, strip_sink,
-                              self.mesh)
-                del o
-        if strip_sink is not None:
-            return None
-        return out[:, :, 0] if squeeze else out
-
-
-class PackedSlabRegridder(_Operator):
-    """Several ELL operators over the SAME source row space and target
-    grid, applied as ONE kernel pass writing ONE packed output.
-
-    ``ells_and_cols``: list of (ELLWeights, n_cols) in column order; the
-    apply consumes one (n_src, sum(n_cols)) source laid out the same way.
-    The per-tile slab is the union of the methods' unique source rows; the
-    kernel of the route (see the module docstring) writes each method's
-    sum into its column range.
-
-    ``rotate_spec``: optional (windows, cosa, sina) — windows is a tuple of
-    (cu, cv, n) packed-column triples (u levels at [cu, cu+n), v at
-    [cv, cv+n)); cosa/sina are (ny, nx) host arrays. The Q4 wind rotation
-    is applied to those columns inside the kernel, on every route. A
-    window that does not fit one 256-column sub-chunk raises ValueError,
-    as in the JAX package, so that both packages take the same rotation
-    route. With a ``mesh`` each rank applies its band of tile rows (see the
-    module docstring).
-    """
-
-    #: apply_np accepts a list of column blocks (device-side assembly)
-    accepts_blocks = True
-
-    def __init__(self, ells_and_cols, device, precision: str = "highest",
-                 rotate_spec=None, cache_dir=None, mesh=None):
-        ells = [e for e, _ in ells_and_cols]
-        self.col_counts = [int(c) for _, c in ells_and_cols]
-        if len({e.n_src for e in ells}) != 1:
-            raise ValueError("packed operators must share one source space")
-        if len({tuple(e.dst_shape) for e in ells}) != 1:
-            raise ValueError("packed operators must share the target grid")
-        ny, nx = ells[0].dst_shape
-        self.n_src = ells[0].n_src
-        self.dst_shape = (ny, nx)
-        self.C_total = sum(self.col_counts)
-        # column ranges per method within the packed output
-        self.ranges = []
-        off = 0
-        for c in self.col_counts:
-            self.ranges.append((off, off + c))
-            off += c
-        # validate rotate windows BEFORE the expensive union pack: callers
-        # fall back to a rotation-free regridder on ValueError
-        if rotate_spec is not None:
-            _validate_rotate(tuple(rotate_spec[0]), tuple(self.ranges),
-                             self.Cp)
-
-        # union slab over the K-concatenation of all methods; per-method
-        # loc/w slices over it follow the K-concatenation order
-        def _cat():
-            return (np.concatenate(
-                        [np.asarray(e.idx, np.int64) for e in ells], axis=1),
-                    np.concatenate(
-                        [np.asarray(e.w, np.float64) for e in ells], axis=1))
-
-        fps = tuple(e.fingerprint() for e in ells) if cache_dir else None
-        pack = _pack_union_cached(
-            _cat, ny, nx, self.n_src, cache_dir=cache_dir, ell_fps=fps)
-        super().__init__(device, precision, cache_dir, fps,
-                         [e.idx.shape[1] for e in ells], pack, mesh)
-
-        # in-kernel wind rotation (quirk Q4): cosa/sina tile-blocked
-        # (n_tiles, TY, TX) and padded with the IDENTITY rotation (cosa=1,
-        # sina=0) outside the data region — zero padding would put 0/0
-        # NaNs in the padded rows; this rank's band of tile rows
-        self.rotate = ()
-        self._cosa_t = self._sina_t = None
-        if rotate_spec is not None:
-            windows, cosa, sina = rotate_spec
-            cs = np.zeros((self.nty_p * TY, self.ntx * TX, 2), np.float32)
-            cs[:, :, 0] = 1.0
-            cs[:ny, :nx, 0] = np.asarray(cosa, np.float32).reshape(ny, nx)
-            cs[:ny, :nx, 1] = np.asarray(sina, np.float32).reshape(ny, nx)
-            t0 = (0 if mesh is None else mesh.rank) * self.n_tiles
-            cs_t = _tile_block(cs, self.nty_p, self.ntx, 2).reshape(
-                self.nty_p * self.ntx, TY, TX, 2)[t0:t0 + self.n_tiles]
-            self.rotate = tuple(tuple(w) for w in windows)
-            self._cosa_t = torch.from_numpy(
-                np.ascontiguousarray(cs_t[..., 0])).to(self.device)
-            self._sina_t = torch.from_numpy(
-                np.ascontiguousarray(cs_t[..., 1])).to(self.device)
-
-    @property
-    def Cp(self) -> int:
-        return self.C_total + ((-self.C_total) % LANE)
-
-    def _apply_padded(self, src_dev, g=0):
-        """(n_src[+CH], w) device window of packed source columns
+    def _apply(self, src_dev, ranges, g=0, rotate=()):
+        """(n_src + pad_rows, w) device window of packed source columns
         [g, g + w) -> (nyp, nxp, w) by one launch of the route's kernel,
         over the methods that meet the window with their column ranges
         relative to g; the rotation windows ride the window at g = 0.
-        Columns past C_total are zeroed by the kernel."""
-        ranges, ms = group_ranges(self.ranges, g, src_dev.shape[1])
-        kw = dict(ranges=ranges, nty=self.nty_l, ntx=self.ntx)
+        Columns past the last range are zeroed by the kernel."""
+        sub, ms = group_ranges(ranges, g, src_dev.shape[1])
+        kw = dict(ranges=sub, nty=self.nty_l, ntx=self.ntx)
         if g == 0:
-            kw.update(rotate=self.rotate, cosa=self._cosa_t,
+            kw.update(rotate=tuple(rotate), cosa=self._cosa_t,
                       sina=self._sina_t)
-        if self.route == "gather":
-            ch, locs, ws = self._gather_dev()
-            self._count_slab(src_dev.shape[1], self.W8)
-            return packed_gather_apply(src_dev, ch, [locs[m] for m in ms],
-                                       [ws[m] for m in ms], W8=self.W8, **kw)
-        self._count_slab(src_dev.shape[1])
-        slab = self._slab(src_dev)
-        if self.route == "onehot":
-            return onehot_apply_packed([self.As[m] for m in ms], slab,
-                                       precision=self.precision, **kw)
-        locs, ws = self._ell_dev()
-        return packed_apply(slab, [locs[m] for m in ms], [ws[m] for m in ms],
-                            **kw)
+        launch, _, rows = self._kernel()
+        count("apply.slab_bytes",
+              4 * self.n_tiles * rows * int(src_dev.shape[1]))
+        return launch(src_dev, ms, **kw)
 
-    def __call__(self, src_dev):
-        """src (n_src, C_total) tensor on the operator's device, columns
-        laid out per ``ells_and_cols``. Returns (nyp, nxp, C_total); under
-        a mesh this rank's band of it, (nty_l * 32, nxp, C_total)."""
-        if src_dev.shape[1] != self.C_total:
-            raise ValueError(
-                f"packed source has {src_dev.shape[1]} columns, operator "
-                f"expects {self.C_total}")
-        pad = self.Cp - self.C_total
-        rows = CH if self.route == "gather" else 0
-        src_dev = torch.nn.functional.pad(src_dev.float(), (0, pad, 0, rows))
-        return self._apply_padded(src_dev)[:, :, :self.C_total]
+    def __call__(self, src_dev, cols=None, rotate=()):
+        """src (n_src, C) tensor on the operator's device, columns laid
+        out as ``cols``. Returns the (nyp, nxp, C) device result
+        (tile-padded grid); under a mesh this rank's band of it,
+        (nty_l * 32, nxp, C)."""
+        if src_dev.dim() == 1:
+            src_dev = src_dev[:, None]
+        C = src_dev.shape[1]
+        ranges, Cp = self._ranges(C, cols, rotate)
+        src_dev = torch.nn.functional.pad(src_dev.float(),
+                                          (0, Cp - C, 0, self.pad_rows))
+        return self._apply(src_dev, ranges, rotate=rotate)[:, :, :C]
 
     def _held_bytes(self) -> int:
         """Device bytes of what each group's launch reads besides its
-        source window: the slab index, the route's operands (built here on
-        first use; the ELL arrays stand for the gather route's, which is
-        never grouped) and the rotation's cosa/sina."""
-        held = [self.slab_idx, self._cosa_t, self._sina_t]
-        if self.route == "onehot":
-            held += self.As
-        else:
-            held += [t for ts in self._ell_dev() for t in ts]
+        source window: the slab index, the route's operands (``_kernel``,
+        built here on first use) and the rotation's cosa/sina."""
+        held = [self.slab_idx, self._cosa_t, self._sina_t,
+                *self._kernel()[1]]
         return sum(t.numel() * t.element_size() for t in held
                    if t is not None)
 
-    def _grouped_width(self) -> int:
-        """Column-group width of the device-memory-bounded apply, or 0
-        when one full-width pass fits ``device_budget``. The JAX package's
-        rule, with what it leaves out counted: a column costs its source,
-        slab and output columns, all live during its group's launch; beside
-        them the device holds the operands (``_held_bytes``) and one fetch
-        chunk (``_fetch_bytes``: under a process group the gathered chunks
-        of every rank too). The halving keeps two groups' worth of columns
-        inside the rest, as in the JAX package. Group 0 keeps the rotation
-        windows and at least CB columns, and the width is rounded up to a
-        multiple of LANE, which the kernels' column blocks need: only these
-        floors may take a group past the budget. Under a mesh a rank counts
-        its band's slab and output, and every rank takes the least width
-        any rank computed (their devices' free bytes may differ), so all
-        run the same groups."""
-        if self.Cp <= FETCH:
+    def _grouped_width(self, Cp, rotate=()) -> int:
+        """Column-group width of the device-memory-bounded apply of Cp
+        padded columns, or 0 when one full-width pass fits
+        ``device_budget``. The JAX package's rule, with what it leaves out
+        counted: a column costs its source, slab and output columns, all
+        live during its group's launch; beside them the device holds the
+        operands (``_held_bytes``) and a fetch (``_fetch_bytes``, its
+        strips at most a group wide). From FETCH, the halving keeps two
+        groups' worth of columns inside the rest, as in the JAX package.
+        Group 0 keeps the ``rotate`` windows and at least CB columns, and
+        the width is rounded up to a multiple of LANE, which the kernels'
+        column blocks need: only these floors may take a group past the
+        budget. Under a mesh a rank counts its band's slab and output, and
+        every rank takes the least width any rank computed (their devices'
+        free bytes may differ), so all run the same groups."""
+        if Cp <= FETCH:
             return 0
         per_col = 4 * (self.n_src + self.n_tiles * self.W
                        + self.nty_l * TY * self.ntx * TX)
         held = self._held_bytes()
-        room = device_budget(self.device, held) - held - _fetch_bytes(
-            self.mesh)
+        room = device_budget(self.device, held) - held
+
+        def need(w, n):
+            """n groups' columns of width w and a fetch of w-wide strips."""
+            return n * w * per_col + _fetch_bytes(
+                self.mesh, 4 * self.dst_shape[1] * w)
         gw = 0
-        if self.Cp * per_col > room:
+        if need(Cp, 1) > room:
             gw = FETCH
-            while gw > LANE and 2 * gw * per_col > room:
+            while gw > LANE and need(gw, 2) > room:
                 gw //= 2
-            if self.rotate:
-                gw = max(gw, CB, max(cv + n for (_, cv, n) in self.rotate))
+            if rotate:
+                gw = max(gw, CB, max(cv + n for (_, cv, n) in rotate))
             gw = -(-gw // LANE) * LANE
         if self.mesh is not None and self.mesh.group is not None:
-            least = torch.tensor([gw or self.Cp], device=self.device)
+            least = torch.tensor([gw or Cp], device=self.device)
             dist.all_reduce(least, op=dist.ReduceOp.MIN,
                             group=self.mesh.group)
-            gw = int(least) if int(least) < self.Cp else 0
+            gw = int(least) if int(least) < Cp else 0
         return gw
 
-    def apply_np(self, src, root_only: bool = False, strip_sink=None):
-        """Host apply in column groups of ``_grouped_width`` columns when
-        one full-width pass would not fit the device budget, else in one
-        group of Cp (always on the gather route, as in the JAX package).
-        Per group: the source window's upload, one launch of the route's
-        kernel (``_apply_padded``) and the fetch in CB strips (see
-        SlabMatmulRegridder.apply_np); the group is freed before the next
-        one is uploaded. ``src`` may be a list of column blocks; with
-        ``strip_sink`` each strip streams to the sink and None is
+    def apply_np(self, src, cols=None, rotate=(), root_only: bool = False,
+                 strip_sink=None):
+        """Host apply of ``src`` (one (n_src, C) array, a 1-D one for one
+        column, or a list of column blocks summing to C), its columns laid
+        out as ``cols`` with the rotation windows ``rotate``. In column
+        groups of ``_grouped_width`` columns when one full-width pass
+        would not fit the device budget, else in one group of Cp (always
+        on the gather route, as in the JAX package). Per group: the source
+        window's upload, one launch of the route's kernel (``_apply``) and
+        the fetch (``_fetch_strips``); the group is freed before the next
+        one is uploaded. Returns the (ny, nx, C) host result ((ny, nx) for
+        a 1-D source); with ``strip_sink`` each fetched (ny, nx, cb) strip
+        is handed to ``strip_sink(col_lo, strip)`` instead and None is
         returned."""
-        gw = (self.Cp if self.route == "gather"
-              else self._grouped_width() or self.Cp)
+        is_blocks = isinstance(src, (list, tuple))
+        blocks = src if is_blocks else [src]
+        C = sum(1 if np.ndim(b) == 1 else np.shape(b)[1] for b in blocks)
+        ranges, Cp = self._ranges(C, cols, rotate)
+        gw = (Cp if self.route == "gather"
+              else self._grouped_width(Cp, rotate) or Cp)
         ny, nx = self.dst_shape
-        out = _host_result((ny, nx, self.C_total), root_only, self.mesh,
-                           strip_sink)
-        for g in range(0, self.Cp, gw):
+        out = _host_result((ny, nx, C), root_only, self.mesh, strip_sink)
+        for g in range(0, Cp, gw):
             count("apply.groups", 1)
-            src_dev = self._upload(src, min(gw, self.Cp - g), g)
-            o = self._apply_padded(src_dev, g)
+            src_dev = _src_window_to_device(src, g, min(gw, Cp - g),
+                                            self.device, self.pad_rows)
+            o = self._apply(src_dev, ranges, g, rotate)
             del src_dev
-            _fetch_strips(o, self.C_total, ny, nx, g, root_only, out,
-                          strip_sink, self.mesh)
+            _fetch_strips(o, C, ny, nx, g, root_only, out, strip_sink,
+                          self.mesh)
             del o
+        if out is not None and not is_blocks and np.ndim(src) == 1:
+            return out[:, :, 0]
         return out

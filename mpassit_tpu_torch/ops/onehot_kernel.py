@@ -4,11 +4,12 @@ split helpers and the kernel's launch plan.
 Counterpart of the two TPU kernels of ``mpassit_tpu/ops/pallas_matmul.py``
 that take a one-hot operator ``A`` (``matmul_apply._build_A_T``):
 
-- ``onehot_apply`` for ``fused_apply`` (single method): ``A[t]^T @ slab[t]``
-  written into the row-major ``(nty*32, ntx*32, Cp)`` target layout;
-- ``onehot_apply_packed`` for ``fused_apply_packed`` with ``As=``: one
-  ``A`` per method column range over one union slab, then the Q4 rotation,
-  tail zeros and the optional per-tile checksum, as ``packed_apply``.
+``onehot_apply_packed`` stands for both: one ``A`` per method column range
+over one union slab, then the Q4 rotation, tail zeros and the optional
+per-tile checksum, as ``packed_apply`` (``fused_apply_packed`` with
+``As=``); a single method is one range over every column, ``A[t]^T @
+slab[t]`` in the row-major ``(nty*32, ntx*32, Cp)`` target layout
+(``fused_apply``).
 
 ``A`` is ``(n_tiles, W, 1024)`` f32 here. The TPU takes it prestacked into
 3 or 6 bf16 copies (``_prep_A``); the CUDA kernel (``csrc/onehot_apply.cu``)
@@ -40,7 +41,7 @@ K, the grid, the method passes of each 128-column chunk, where each
 rotation partner is computed, the checksum partials and the dynamic shared
 memory. Its ``table`` is what the kernel reads on the device.
 
-Each wrapper launches the kernel for CUDA tensors and runs its plain
+The wrapper launches the kernel for CUDA tensors and runs its plain
 version for CPU tensors; there is no fallback from one to the other.
 """
 
@@ -80,9 +81,9 @@ SMEM_MAX = 232_448  # dynamic shared memory a block can have on an H100
 W_CAP = 2048        # matmul_apply.W_CAP: the widest slab a pack builds
 
 #: kernel launches per wrapper (one per call on a CUDA tensor)
-LAUNCHES = {"onehot_apply": 0, "onehot_apply_packed": 0}
+LAUNCHES = {"onehot_apply_packed": 0}
 #: calls of each plain version
-PLAIN_CALLS = {"onehot_apply": 0, "onehot_apply_packed": 0}
+PLAIN_CALLS = {"onehot_apply_packed": 0}
 
 SOURCE = os.path.join(_build.CSRC, "onehot_apply.cu")
 BUILD_DIR = _build.BUILD_DIR
@@ -224,7 +225,7 @@ class LaunchPlan:
 
 
 def launch_plan(n_tiles, W, Cp, ranges, rotate=(), precision="split6_bf16"):
-    """The launch geometry of ``onehot_apply(_packed)`` on a card, for
+    """The launch geometry of ``onehot_apply_packed`` on a card, for
     ``n_tiles`` tiles of a (W-row, Cp-column) slab, the method column
     ``ranges`` and the ``(cu, cv, n)`` rotation windows. Raises ValueError
     on what the kernel does not take: W outside [1, W_CAP], Cp not a
@@ -317,7 +318,7 @@ def _check_onehot(As, slab, precision):
                 f"got {tuple(A.shape)} {A.dtype}")
 
 
-def _launch(name, As, slab, ranges, nty, ntx, precision, rotate, cosa, sina,
+def _launch(As, slab, ranges, nty, ntx, precision, rotate, cosa, sina,
             with_checksum):
     n_tiles, W, Cp = slab.shape
     dev = slab.device
@@ -338,25 +339,10 @@ def _launch(name, As, slab, ranges, nty, ntx, precision, rotate, cosa, sina,
             plan.terms, plan.smem, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"onehot_apply_launch failed: rc={rc}")
-    LAUNCHES[name] += 1
+    LAUNCHES["onehot_apply_packed"] += 1
     if with_checksum:
         return out, checksum
     return out
-
-
-def onehot_apply(A, slab, *, nty, ntx, precision="split_bf16"):
-    """A (n_tiles, W, 1024) f32 one-hot operator, slab (n_tiles, W, Cp)
-    f32 with Cp % 128 == 0. Returns (nty*32, ntx*32, Cp) f32 in row-major
-    target layout: the single-method product with the term set of
-    ``precision`` (the contract of pallas_matmul.fused_apply)."""
-    _check_onehot((A,), slab, precision)
-    n_tiles, _, Cp = slab.shape
-    _check_layout(n_tiles, Cp, ((0, Cp),), nty, ntx, (), None, None)
-    if not _route("onehot_apply", slab.device, [A]):
-        return onehot_apply_plain(A, slab, nty=nty, ntx=ntx,
-                                  precision=precision)
-    return _launch("onehot_apply", (A,), slab, ((0, Cp),), nty, ntx,
-                   precision, (), None, None, False)
 
 
 def onehot_apply_packed(As, slab, *, ranges, nty, ntx,
@@ -376,8 +362,8 @@ def onehot_apply_packed(As, slab, *, ranges, nty, ntx,
         return onehot_apply_packed_plain(
             As, slab, ranges=ranges, nty=nty, ntx=ntx, precision=precision,
             with_checksum=with_checksum, rotate=rotate, cosa=cosa, sina=sina)
-    return _launch("onehot_apply_packed", tuple(As), slab, ranges, nty, ntx,
-                   precision, rotate, cosa, sina, with_checksum)
+    return _launch(tuple(As), slab, ranges, nty, ntx, precision, rotate,
+                   cosa, sina, with_checksum)
 
 
 # ------------------------------------------------------ plain versions ----
@@ -399,18 +385,6 @@ def _onehot_plain(As, slab, ranges, nty, ntx, precision, rotate, cosa, sina,
     return _plain_rows(row_block, nty=nty, ntx=ntx, Cp=Cp, dev=slab.device,
                        rotate=rotate, cosa=cosa, sina=sina,
                        with_checksum=with_checksum)
-
-
-def onehot_apply_plain(A, slab, *, nty, ntx, precision="split_bf16"):
-    """``onehot_apply`` in plain PyTorch, on any device: per tile row the
-    stacked-operand product (``_tile_matmul``), unblocked into row-major
-    order (pallas_matmul.fused_apply's function)."""
-    PLAIN_CALLS["onehot_apply"] += 1
-    _check_onehot((A,), slab, precision)
-    n_tiles, _, Cp = slab.shape
-    _check_layout(n_tiles, Cp, ((0, Cp),), nty, ntx, (), None, None)
-    return _onehot_plain((A,), slab, ((0, Cp),), nty, ntx, precision, (),
-                         None, None, False)
 
 
 def onehot_apply_packed_plain(As, slab, *, ranges, nty, ntx,

@@ -12,7 +12,7 @@ file format; the device-bound layers are ported.
 The device is explicit: ``run_pipeline(cfg, device)`` places every
 operator and apply on ``device``; ``main`` takes it from
 ``MPASSIT_PLATFORM`` (``cuda`` by default, ``cpu`` for the tests). On a
-CUDA device every packed and slab apply launches a Hopper kernel of the
+CUDA device every tile-packed apply launches a Hopper kernel of the
 apply route that ``MPASSIT_ELL_KERNEL``/``MPASSIT_GATHER_KERNEL`` pick
 (ops/matmul_apply.py); on the CPU they run its plain PyTorch version.
 
@@ -77,7 +77,8 @@ from ..weights.restagger import (
 )
 
 from ..ops.apply import Regridder
-from ..ops.matmul_apply import PackedSlabRegridder, SlabMatmulRegridder
+from ..ops.matmul_apply import PackedSlabRegridder, column_ranges
+from ..ops.packed_kernel import _validate_rotate
 from ..ops.rotate import check_rotation_angles, rotate_winds
 from ..parallel.multihost import (
     is_primary,
@@ -270,29 +271,33 @@ class _ApplyBatch:
 def _run_batches_packed(batches, rgs, weights, root_only, device,
                         grid=None, writer=None, deferred=None) -> bool:
     """Cross-METHOD packing: when the cell-space methods (bilinear /
-    nearest / conserve) all ride SlabMatmulRegridder engines, fuse their
-    batches into ONE PackedSlabRegridder apply — one union-slab gather and
-    one kernel launch for every cell-located field in the run (one per
-    column group when the apply is grouped). Drained batches are emptied;
-    anything unpacked (vertex space, f64 engines) runs normally
-    afterwards. MPASSIT_NO_PACK=1 disables (test hook). With a ``writer``
-    the fetched strips stream to it through a _StripRouter.
+    nearest / conserve) all ride PackedSlabRegridder engines, fuse their
+    batches into ONE apply of a PackedSlabRegridder over their union —
+    one union-slab gather and one kernel launch for every cell-located
+    field in the run (one per column group when the apply is grouped).
+    Drained batches are emptied; anything unpacked (vertex space, f64
+    engines) runs normally afterwards. MPASSIT_NO_PACK=1 disables (test
+    hook). With a ``writer`` the fetched strips stream to it through a
+    _StripRouter.
 
     Parts tagged "rot_u"/"rot_v" (the mass winds under Lambert) are moved
     to the FRONT of the bilinear column range and the Q4 earth->grid
-    rotation runs INSIDE the kernel — their sinks receive rotated winds.
-    Returns True when that in-kernel rotation was performed."""
+    rotation runs INSIDE the kernel — their sinks receive rotated winds —
+    when that window fits one 256-column chunk (``_validate_rotate``, the
+    JAX package's check). Returns True when that in-kernel rotation was
+    performed."""
     if os.environ.get("MPASSIT_NO_PACK") == "1":
         return False
     cell_keys = [k for k in ("bilinear", "nearest", "conserve")
                  if k in batches and batches[k].parts]
     if len(cell_keys) < 2 or not all(
-            isinstance(rgs[k], SlabMatmulRegridder) for k in cell_keys):
+            isinstance(rgs[k], PackedSlabRegridder) for k in cell_keys):
         return False
+    cols = [sum(p[0] for p in batches[k].parts) for k in cell_keys]
 
     # in-kernel wind rotation: pull the tagged u/v parts to the head of the
     # bilinear range so their window sits in the first 256-column chunk
-    rotate_spec = None
+    rotate = ()
     if grid is not None and "bilinear" in cell_keys:
         bparts = batches["bilinear"].parts
         tagged = {p[4]: i for i, p in enumerate(bparts)
@@ -301,47 +306,42 @@ def _run_batches_packed(batches, rgs, weights, root_only, device,
             iu, iv = tagged["rot_u"], tagged["rot_v"]
             n_u, n_v = bparts[iu][0], bparts[iv][0]
             if n_u == n_v:
+                try:
+                    _validate_rotate(((0, n_u, n_u),), column_ranges(cols),
+                                     sum(cols))
+                    rotate = ((0, n_u, n_u),)
+                except ValueError:
+                    pass     # window exceeds the chunk: rotate post-hoc
                 rest = [p for i, p in enumerate(bparts) if i not in (iu, iv)]
                 batches["bilinear"].parts = [bparts[iu], bparts[iv]] + rest
-                rotate_spec = (((0, n_u, n_u),), grid.cosa, grid.sina)
     ref_rg = rgs[cell_keys[0]]
-    ells_and_cols = [(weights[k], sum(p[0] for p in batches[k].parts))
-                     for k in cell_keys]
-    pk = None
-    if rotate_spec is not None:
-        try:
-            pk = PackedSlabRegridder(
-                ells_and_cols, device, precision=ref_rg.precision,
-                rotate_spec=rotate_spec, cache_dir=ref_rg.cache_dir,
-                mesh=ref_rg.mesh)
-        except ValueError:
-            pk = None          # window exceeds the 256-column chunk: rotate
-            rotate_spec = None  # post-hoc instead
-    if pk is None:
-        try:
-            pk = PackedSlabRegridder(
-                ells_and_cols, device, precision=ref_rg.precision,
-                cache_dir=ref_rg.cache_dir, mesh=ref_rg.mesh)
-        except ValueError:
-            return False             # e.g. union exceeds the W cap
+    try:
+        pk = PackedSlabRegridder(
+            [weights[k] for k in cell_keys], device,
+            precision=ref_rg.precision,
+            rotation=(grid.cosa, grid.sina) if rotate else None,
+            cache_dir=ref_rg.cache_dir, mesh=ref_rg.mesh)
+    except ValueError:
+        return False             # e.g. union exceeds the W cap
     # list of per-part column blocks, assembled on the device
     src = []
     for k in cell_keys:
         for _, m, _, _, _, _ in batches[k].parts:
             src.extend(m if isinstance(m, list) else [m])
     log.info("- packed apply: %s (%d cols, one kernel pass%s%s)",
-             "+".join(cell_keys), pk.C_total,
-             ", in-kernel wind rotation" if rotate_spec else "",
+             "+".join(cell_keys), sum(cols),
+             ", in-kernel wind rotation" if rotate else "",
              ", streamed to file" if writer is not None else "")
     if writer is not None:
         router = _StripRouter(writer, pk.dst_shape)
         for k in cell_keys:
             router.add_parts(batches[k].parts, batches[k].defer, deferred)
             batches[k].parts = []
-        pk.apply_np(src, root_only=root_only, strip_sink=router)
+        pk.apply_np(src, cols, rotate, root_only=root_only,
+                    strip_sink=router)
         router.finalize()
-        return rotate_spec is not None
-    out = pk.apply_np(src, root_only=root_only)
+        return bool(rotate)
+    out = pk.apply_np(src, cols, rotate, root_only=root_only)
     off = 0
     for k in cell_keys:
         b = batches[k]
@@ -349,7 +349,7 @@ def _run_batches_packed(batches, rgs, weights, root_only, device,
             sink(out[..., off] if squeeze else out[..., off:off + kcols])
             off += kcols
         b.parts = []
-    return rotate_spec is not None
+    return bool(rotate)
 
 
 def _build_stream_plan(cfg, routing, data) -> dict:
@@ -407,7 +407,7 @@ def _make_regridder(ell: ELLWeights, dtype, device, mesh=None,
                                       comm=source_decomp)
     if dtype == torch.float32 and len(ell.dst_shape) == 2:
         try:
-            return SlabMatmulRegridder(ell, device, precision=precision,
+            return PackedSlabRegridder([ell], device, precision=precision,
                                        cache_dir=cache_dir, mesh=mesh)
         except ValueError:
             pass

@@ -233,7 +233,7 @@ def warm_cache(nml):
         _make_regridder(ell, torch.float32, cpu, cache_dir=cache)
     cell = [k for k in ("bilinear", "nearest", "conserve") if k in weights]
     if len(cell) >= 2:
-        PackedSlabRegridder([(weights[k], 1) for k in cell], cpu,
+        PackedSlabRegridder([weights[k] for k in cell], cpu,
                             cache_dir=cache)
     return sorted(weights)
 

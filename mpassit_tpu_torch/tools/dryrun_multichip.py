@@ -22,11 +22,12 @@ each rank runs:
   ``SourceShardedRegridder`` with ``comm`` ring and allgather, float64;
 - ``ring_apply`` and ``shard_map_apply`` on the bilinear operator, 2-D and
   1-D sources;
-- the tile-row-sharded ``SlabMatmulRegridder`` (bilinear, vertex, EDGE1)
-  and the packed operator (bilinear + nearest + conservative, the Q4
-  rotation in the kernel), float32: in one pass, in column groups (a tiny
-  ``MPASSIT_DEVICE_BUDGET_GB``), with ``root_only`` and into a strip sink;
-  and once on the one-hot route (``MPASSIT_ELL_KERNEL=0``, split6_bf16).
+- the tile-row-sharded ``PackedSlabRegridder`` over one operator
+  (bilinear, vertex, EDGE1) and over three (bilinear + nearest +
+  conservative, the Q4 rotation in the kernel), float32: in one pass, in
+  column groups (a tiny ``MPASSIT_DEVICE_BUDGET_GB``), with ``root_only``
+  and into a strip sink; and once on the one-hot route
+  (``MPASSIT_ELL_KERNEL=0``, split6_bf16).
 
 The parent holds every rank's results against the unsharded applies run
 in its own process: replicate and the tile-row-sharded applies bit for
@@ -153,7 +154,7 @@ def applies(prob: dict, device, mesh) -> dict:
     import torch
 
     from ..ops.apply import Regridder
-    from ..ops.matmul_apply import PackedSlabRegridder, SlabMatmulRegridder
+    from ..ops.matmul_apply import PackedSlabRegridder, padded
     from ..parallel.sharding import (
         ShardedRegridder,
         SourceShardedRegridder,
@@ -189,36 +190,36 @@ def applies(prob: dict, device, mesh) -> dict:
             out[f"shard_map_apply{tag}"] = shard_map_apply(bil, mesh, x,
                                                            dtype=f64)
     for k in ("bilinear", "vertex", "edge1"):
-        out[f"slab.{k}"] = SlabMatmulRegridder(ells[k], device,
+        out[f"slab.{k}"] = PackedSlabRegridder([ells[k]], device,
                                                mesh=mesh).apply_np(
             src[k][:, :NCOL].astype(np.float32))
-    pk = PackedSlabRegridder(
-        [(ells[k], c) for k, c in zip(("bilinear", "nearest", "conserve"),
-                                      PACK_COLS)], device,
-        rotate_spec=((ROTATE,), prob["cosa"], prob["sina"]), mesh=mesh)
+    cell = [ells[k] for k in ("bilinear", "nearest", "conserve")]
+    rotation = (prob["cosa"], prob["sina"])
+    pk = PackedSlabRegridder(cell, device, rotation=rotation, mesh=mesh)
     sp = src["bilinear"].astype(np.float32)
-    out["packed"] = pk.apply_np(sp)
+    cols, rot = PACK_COLS, (ROTATE,)
+    out["packed"] = pk.apply_np(sp, cols, rot)
     os.environ["MPASSIT_DEVICE_BUDGET_GB"] = TINY_BUDGET
     try:
-        out["packed_group_width"] = np.asarray(pk._grouped_width())
-        out["packed_grouped"] = pk.apply_np(sp)
+        out["packed_group_width"] = np.asarray(
+            pk._grouped_width(padded(sum(cols)), rot))
+        out["packed_grouped"] = pk.apply_np(sp, cols, rot)
         strips = {}
-        pk.apply_np([sp[:, :7], sp[:, 7:]], strip_sink=lambda lo, st:
-                    strips.__setitem__(lo, np.array(st)))
+        pk.apply_np([sp[:, :7], sp[:, 7:]], cols, rot,
+                    strip_sink=lambda lo, st: strips.__setitem__(
+                        lo, np.array(st)))
         out["packed_grouped_sink"] = (np.concatenate(
             [strips[lo] for lo in sorted(strips)], axis=2) if strips
             else np.zeros((0,)))
     finally:
         del os.environ["MPASSIT_DEVICE_BUDGET_GB"]
-    out["packed_root_only"] = np.array(pk.apply_np(sp, root_only=True))
+    out["packed_root_only"] = np.array(pk.apply_np(sp, cols, rot,
+                                                   root_only=True))
     os.environ["MPASSIT_ELL_KERNEL"] = "0"
     try:
         out["packed_onehot"] = PackedSlabRegridder(
-            [(ells[k], c) for k, c in zip(("bilinear", "nearest",
-                                           "conserve"), PACK_COLS)],
-            device, precision="split6_bf16",
-            rotate_spec=((ROTATE,), prob["cosa"], prob["sina"]),
-            mesh=mesh).apply_np(sp)
+            cell, device, precision="split6_bf16", rotation=rotation,
+            mesh=mesh).apply_np(sp, cols, rot)
     finally:
         del os.environ["MPASSIT_ELL_KERNEL"]
     return out

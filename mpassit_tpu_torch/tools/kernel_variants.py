@@ -152,7 +152,7 @@ def run_variants(ell, device, *, cols=512, seed=0, cache_dir=None):
     source on ``device``. On a CUDA device every variant is timed; on the
     CPU (tests) the wrappers run their plain versions and nothing is timed.
     Returns {"problem", "variants", "checks", "ok"}."""
-    from ..ops.matmul_apply import LANE, SlabMatmulRegridder
+    from ..ops.matmul_apply import PackedSlabRegridder, padded
     from ..ops.packed_kernel import packed_apply
     from ..ops.variant_kernels import (
         V2_CC,
@@ -163,9 +163,9 @@ def run_variants(ell, device, *, cols=512, seed=0, cache_dir=None):
     from ..ops.write_wall import write_wall
 
     device = torch.device(device)
-    rg = SlabMatmulRegridder(ell, device, precision="split_bf16",
+    rg = PackedSlabRegridder([ell], device, precision="split_bf16",
                              cache_dir=cache_dir)
-    Cp = cols + (-cols) % LANE
+    Cp = padded(cols)
     rng = np.random.default_rng(seed)
     src = torch.zeros((ell.n_src, Cp), dtype=torch.float32, device=device)
     src[:, :cols] = torch.from_numpy(

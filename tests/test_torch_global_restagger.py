@@ -209,7 +209,7 @@ def test_slab_bytes_counts_each_launch():
     x 4, on the default route."""
     g = _grid(GLOBAL)
     ell = rs.edge2_weights(g)
-    rg = tm.SlabMatmulRegridder(ell, torch.device("cpu"))
+    rg = tm.PackedSlabRegridder([ell], torch.device("cpu"))
     src = rs.with_pole_rows(_mass_winds(g).astype(np.float32), g.ny, g.nx)
     t = Timings()
     with recording(t):

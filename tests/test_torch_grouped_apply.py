@@ -69,26 +69,27 @@ def problem():
 
 
 def _spec(ells, window):
-    """rotate_spec for ``window`` (None: no rotation)."""
+    """The JAX package's rotate_spec for ``window`` (None: no rotation),
+    the port's ``rotation`` grid and its call's windows."""
     if window is None:
-        return {}
+        return {}, {}, ()
     ny, nx = ells[0].dst_shape
     alpha = np.random.default_rng(3).uniform(-0.3, 0.3, (ny, nx))
-    return {"rotate_spec": ((window,), np.cos(alpha).astype(np.float32),
-                            np.sin(alpha).astype(np.float32))}
+    cs = np.cos(alpha).astype(np.float32), np.sin(alpha).astype(np.float32)
+    return {"rotate_spec": ((window,), *cs)}, {"rotation": cs}, (window,)
 
 
-def _apply(rg, src, form):
-    """apply_np of ``src`` as one array, as a block list, or through a
-    strip sink, reassembled."""
+def _apply(rg, src, form, rot=()):
+    """apply_np of ``src`` (COLS) as one array, as a block list, or
+    through a strip sink, reassembled."""
     if form == "array":
-        return rg.apply_np(src)
+        return rg.apply_np(src, COLS, rot)
     blocks = [src[:, :17], src[:, 17:300], src[:, 300:]]
     if form == "blocks":
-        return rg.apply_np(blocks)
+        return rg.apply_np(blocks, COLS, rot)
     strips = {}
-    assert rg.apply_np(blocks, strip_sink=lambda lo, s: strips.__setitem__(
-        lo, np.array(s))) is None
+    assert rg.apply_np(blocks, COLS, rot, strip_sink=lambda lo, s:
+                       strips.__setitem__(lo, np.array(s))) is None
     assert all(s.shape[2] <= tm.CB for s in strips.values())
     return np.concatenate([strips[k] for k in sorted(strips)], axis=2)
 
@@ -100,19 +101,20 @@ def test_grouped_equals_full(problem, monkeypatch, route, rotate, form):
     ells, src = problem
     if route == "onehot":
         monkeypatch.setenv("MPASSIT_ELL_KERNEL", "0")
-    rg = tm.PackedSlabRegridder(list(zip(ells, COLS)), CPU,
-                                precision="split6_bf16",
-                                **_spec(ells, (0, 2, 2) if rotate else None))
-    assert rg.route == route and rg.Cp == 640 > tm.FETCH
-    assert rg._grouped_width() == 0          # the CPU default, 12 GB
-    full = rg.apply_np(src)
+    _, kw, rot = _spec(ells, (0, 2, 2) if rotate else None)
+    rg = tm.PackedSlabRegridder(list(ells), CPU, precision="split6_bf16",
+                                **kw)
+    Cp = 640
+    assert rg.route == route and Cp > tm.FETCH
+    assert rg._grouped_width(Cp, rot) == 0   # the CPU default, 12 GB
+    full = rg.apply_np(src, COLS, rot)
     monkeypatch.setenv("MPASSIT_DEVICE_BUDGET_GB", TINY)
-    gw = rg._grouped_width()
+    gw = rg._grouped_width(Cp, rot)
     # halved to LANE; the rotation keeps CB columns in group 0
     assert gw == (tm.CB if rotate else tm.LANE)
     p0, o0 = pk.PLAIN_CALLS, dict(ok.PLAIN_CALLS)
-    got = _apply(rg, src, form)
-    n_groups = -(-rg.Cp // gw)
+    got = _apply(rg, src, form, rot)
+    n_groups = -(-Cp // gw)
     if route == "ell":
         assert pk.PLAIN_CALLS == p0 + n_groups and ok.PLAIN_CALLS == o0
     else:
@@ -125,12 +127,13 @@ def test_grouped_equals_full(problem, monkeypatch, route, rotate, form):
 @pytest.mark.parametrize("rotate", [False, True])
 def test_grouped_matches_jax_grouped(problem, monkeypatch, rotate):
     ells, src = problem
-    kw = _spec(ells, (0, 2, 2) if rotate else None)
+    jkw, kw, rot = _spec(ells, (0, 2, 2) if rotate else None)
     monkeypatch.setenv("MPASSIT_DEVICE_BUDGET_GB", TINY)
-    jr = jm.PackedSlabRegridder(list(zip(ells, COLS)), backend="xla", **kw)
-    rg = tm.PackedSlabRegridder(list(zip(ells, COLS)), CPU, **kw)
-    assert jr._grouped_width() == rg._grouped_width() > 0
-    np.testing.assert_allclose(rg.apply_np(src), jr.apply_np(src), **TOL)
+    jr = jm.PackedSlabRegridder(list(zip(ells, COLS)), backend="xla", **jkw)
+    rg = tm.PackedSlabRegridder(list(ells), CPU, **kw)
+    assert jr._grouped_width() == rg._grouped_width(640, rot) > 0
+    np.testing.assert_allclose(rg.apply_np(src, COLS, rot),
+                               jr.apply_np(src), **TOL)
 
 
 def test_group_width_is_a_lane_multiple(problem, monkeypatch):
@@ -138,25 +141,25 @@ def test_group_width_is_a_lane_multiple(problem, monkeypatch):
     width is 300, which no 128-column kernel block divides; the port's is
     384, and its grouped result is still the full-width one."""
     ells, src = problem
-    kw = _spec(ells, (256, 278, 22))
-    full = tm.PackedSlabRegridder(list(zip(ells, COLS)), CPU,
-                                  **kw).apply_np(src)
+    jkw, kw, rot = _spec(ells, (256, 278, 22))
+    full = tm.PackedSlabRegridder(list(ells), CPU, **kw).apply_np(
+        src, COLS, rot)
     monkeypatch.setenv("MPASSIT_DEVICE_BUDGET_GB", TINY)
     assert jm.PackedSlabRegridder(list(zip(ells, COLS)), backend="xla",
-                                  **kw)._grouped_width() == 300
-    rg = tm.PackedSlabRegridder(list(zip(ells, COLS)), CPU, **kw)
-    assert rg._grouped_width() == 384
-    np.testing.assert_array_equal(rg.apply_np(src), full)
+                                  **jkw)._grouped_width() == 300
+    rg = tm.PackedSlabRegridder(list(ells), CPU, **kw)
+    assert rg._grouped_width(640, rot) == 384
+    np.testing.assert_array_equal(rg.apply_np(src, COLS, rot), full)
 
 
 def test_gather_route_is_never_grouped(problem, monkeypatch):
     ells, src = problem
     monkeypatch.setenv("MPASSIT_GATHER_KERNEL", "1")
     monkeypatch.setenv("MPASSIT_DEVICE_BUDGET_GB", TINY)
-    rg = tm.PackedSlabRegridder(list(zip(ells, COLS)), CPU)
-    assert rg.route == "gather" and rg._grouped_width() > 0
+    rg = tm.PackedSlabRegridder(list(ells), CPU)
+    assert rg.route == "gather" and rg._grouped_width(640) > 0
     g0, p0 = gk.PLAIN_CALLS, pk.PLAIN_CALLS
-    rg.apply_np(src)
+    rg.apply_np(src, COLS)
     assert gk.PLAIN_CALLS == g0 + 1 and pk.PLAIN_CALLS == p0
 
 
@@ -197,11 +200,11 @@ def test_window_upload_converts_only_the_window(problem, monkeypatch):
     np.testing.assert_array_equal(tail[:, :89], src[:, 512:601])
     assert not tail[:, 89:].any()
     # a whole grouped apply of counted blocks: no whole-block conversion
-    full = tm.PackedSlabRegridder(list(zip(ells, COLS)), CPU).apply_np(src)
+    full = tm.PackedSlabRegridder(list(ells), CPU).apply_np(src, COLS)
     monkeypatch.setenv("MPASSIT_DEVICE_BUDGET_GB", TINY)
     blocks = [_CountedBlock(ref[:, :300]), _CountedBlock(ref[:, 300:])]
-    rg = tm.PackedSlabRegridder(list(zip(ells, COLS)), CPU)
-    np.testing.assert_array_equal(rg.apply_np(blocks), full)
+    rg = tm.PackedSlabRegridder(list(ells), CPU)
+    np.testing.assert_array_equal(rg.apply_np(blocks, COLS), full)
     assert [b.converted for b in blocks] == [0, 0]
 
 
@@ -233,30 +236,55 @@ def test_group_width_counts_operands_and_fetch_chunk(problem, monkeypatch):
     not with the operands and a fetch chunk beside them: the port groups,
     the JAX package's rule (which counts the columns alone) does not."""
     ells, src = problem
-    rg = tm.PackedSlabRegridder(list(zip(ells, COLS)), CPU)
+    rg = tm.PackedSlabRegridder(list(ells), CPU)
     per_col = 4 * (rg.n_src + rg.n_tiles * rg.W
                    + rg.nty * tm.TY * rg.ntx * tm.TX)
-    need = rg.Cp * per_col + rg._held_bytes() + tm.FETCH_TMP
+    need = 640 * per_col + rg._held_bytes() + tm._fetch_bytes(None)
     assert rg._held_bytes() > 0
     monkeypatch.setenv("MPASSIT_DEVICE_BUDGET_GB", repr((need + 1e3) / 1e9))
-    assert rg._grouped_width() == 0
+    assert rg._grouped_width(640) == 0
     monkeypatch.setenv("MPASSIT_DEVICE_BUDGET_GB", repr((need - 1e3) / 1e9))
-    assert rg._grouped_width() == tm.FETCH // 2       # 640 columns: 2 groups
+    assert rg._grouped_width(640) == tm.FETCH // 2    # 640 columns: 3 groups
     assert jm.PackedSlabRegridder(list(zip(ells, COLS)),
                                   backend="xla")._grouped_width() == 0
 
 
+def test_group_width_counts_a_fetch_row_past_the_chunk(problem, monkeypatch):
+    """A fetch takes at least one row of its strip: where that row is
+    wider than FETCH_CHUNK, the budget reserves two such rows, not two
+    chunks. A budget that one pass fits with FETCH_CHUNK-sized chunks
+    but not with its 640-column rows groups, and the halved groups' rows
+    are counted at their own width."""
+    ells, src = problem
+    rg = tm.PackedSlabRegridder(list(ells), CPU)
+    monkeypatch.setattr(tm, "FETCH_CHUNK", 1024)
+    per_col = 4 * (rg.n_src + rg.n_tiles * rg.W
+                   + rg.nty * tm.TY * rg.ntx * tm.TX)
+    row = 4 * rg.dst_shape[1]                  # one column of a fetched row
+    assert row * tm.LANE > tm.FETCH_CHUNK
+    base = 640 * per_col + rg._held_bytes()
+    monkeypatch.setenv("MPASSIT_DEVICE_BUDGET_GB",
+                       repr((base + 2 * 640 * row + 1e3) / 1e9))
+    assert rg._grouped_width(640) == 0
+    monkeypatch.setenv("MPASSIT_DEVICE_BUDGET_GB",
+                       repr((base + 2 * tm.FETCH_CHUNK + 1e3) / 1e9))
+    gw = rg._grouped_width(640)
+    assert gw == tm.FETCH // 2
+    assert (2 * gw * per_col + 2 * gw * row + rg._held_bytes()
+            <= tm.device_budget(CPU, rg._held_bytes()))
+
+
 @pytest.mark.parametrize("sink", [False, True])
 def test_fetch_in_row_chunks(problem, monkeypatch, sink):
-    """A staged chunk (FETCH_TMP // FETCH_CHUNKS) of three rows of a CB
+    """A staged chunk (FETCH_CHUNK) of three rows of a CB
     strip: every strip crosses in several row chunks (the sink's CB strips
     three rows at a time, the last chunk short), into the output or to the
     sink, and the result is the one-chunk fetch's."""
     ells, src = problem
-    rg = tm.PackedSlabRegridder(list(zip(ells, COLS)), CPU)
-    full = rg.apply_np(src)
+    rg = tm.PackedSlabRegridder(list(ells), CPU)
+    full = rg.apply_np(src, COLS)
     ny, nx = rg.dst_shape
-    monkeypatch.setattr(tm, "FETCH_TMP", tm.FETCH_CHUNKS * 3 * 4 * nx * tm.CB)
+    monkeypatch.setattr(tm, "FETCH_CHUNK", 3 * 4 * nx * tm.CB)
     assert ny % 3
     got = _apply(rg, src, "sink" if sink else "array")
     np.testing.assert_array_equal(got, full)

@@ -1,10 +1,10 @@
 """mpassit_tpu_torch.ops.onehot_kernel and the port's _build_A_T against
 the JAX package: the one-hot operator and the bf16 split helpers bit for
-bit; ``onehot_apply_plain`` against ``fused_apply(_prep_A(A))`` and
-``onehot_apply_packed_plain`` against ``fused_apply_packed(As=...)`` (Pallas
-interpret mode on the CPU) for each precision; the wrapper's routing and
-validation; and — on a CUDA card only — the kernel against its plain
-version.
+bit; ``onehot_apply_packed_plain`` over one range against
+``fused_apply(_prep_A(A))`` and over several against
+``fused_apply_packed(As=...)`` (Pallas interpret mode on the CPU) for each
+precision; the wrapper's routing and validation; and — on a CUDA card
+only — the kernel against its plain version.
 
 Tolerances: the plain product and the TPU kernel form the same bf16 (or
 f32) terms and differ only in the order of the f32 sums, so rtol 1e-6,
@@ -128,8 +128,9 @@ def test_plain_matches_fused_apply(precision):
     (A,), slab, _, _ = _rand_problem(12345)
     ref = np.asarray(fused_apply(_jax_prep(A, precision), slab, nty=2,
                                  ntx=3, precision=precision, interpret=True))
-    got = ok.onehot_apply_plain(torch.from_numpy(A), torch.from_numpy(slab),
-                                nty=2, ntx=3, precision=precision)
+    got = ok.onehot_apply_packed_plain(
+        (torch.from_numpy(A),), torch.from_numpy(slab), ranges=((0, 512),),
+        nty=2, ntx=3, precision=precision)
     assert got.shape == ref.shape == (64, 96, 512)
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6, atol=1e-7)
 
@@ -185,9 +186,9 @@ def test_split_terms_are_compensated():
     scale = np.abs(slab).max()
     errs = {}
     for precision in PRECISIONS:
-        got = ok.onehot_apply_plain(torch.from_numpy(A),
-                                    torch.from_numpy(slab), nty=2, ntx=3,
-                                    precision=precision)
+        got = ok.onehot_apply_packed_plain(
+            (torch.from_numpy(A),), torch.from_numpy(slab),
+            ranges=((0, 256),), nty=2, ntx=3, precision=precision)
         errs[precision] = np.abs(got.double().numpy() - truth).max() / scale
     assert errs["highest"] < 1e-6 and errs["split6_bf16"] < 1e-6, errs
     assert 1e-7 < errs["split_bf16"] < 2e-4, errs
@@ -197,20 +198,22 @@ def test_cpu_tensor_runs_plain_and_counts():
     (A,), slab, _, _ = _rand_problem(3, nty=1, ntx=2, W=8, Cp=128)
     A, slab = torch.from_numpy(A), torch.from_numpy(slab)
     launches, plain = dict(ok.LAUNCHES), dict(ok.PLAIN_CALLS)
-    out = ok.onehot_apply(A, slab, nty=1, ntx=2, precision="split6_bf16")
+    out = ok.onehot_apply_packed((A,), slab, ranges=((0, 128),), nty=1,
+                                 ntx=2, precision="split6_bf16")
     assert out.device.type == "cpu" and out.shape == (32, 64, 128)
     ok.onehot_apply_packed((A,), slab, ranges=((0, 100),), nty=1, ntx=2)
     assert ok.LAUNCHES == launches
-    assert ok.PLAIN_CALLS == {k: v + 1 for k, v in plain.items()}
+    assert ok.PLAIN_CALLS == {k: v + 2 for k, v in plain.items()}
 
 
 def test_other_device_raises():
     A = torch.zeros((1, 8, TILE), device="meta")
     slab = torch.zeros((1, 8, 128), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
-        ok.onehot_apply(A, slab, nty=1, ntx=1)
-    with pytest.raises(ValueError, match="cuda or cpu"):
         ok.onehot_apply_packed((A,), slab, ranges=((0, 128),), nty=1, ntx=1)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ok.onehot_apply_packed((A, A), slab, ranges=((0, 64), (64, 128)),
+                               nty=1, ntx=1)
 
 
 @pytest.mark.parametrize("kw,match", [
@@ -275,9 +278,9 @@ def test_cuda_kernel_matches_plain(cuda_device, case, precision, checksum):
     assert torch.isfinite(got).all()
     assert (got - ref).abs().max() <= 1e-6 * ref.abs().max()
     assert (got[:, :, ranges[-1][1]:] == 0).all()
-    # the single-method entry point
-    A0, s0 = args[0][0], args[1]
-    one = ok.onehot_apply(A0, s0, nty=nty, ntx=ntx, precision=precision)
-    ref1 = ok.onehot_apply_plain(A0, s0, nty=nty, ntx=ntx,
-                                 precision=precision)
+    # a single method: one range over every column
+    one_kw = dict(ranges=((0, Cp),), nty=nty, ntx=ntx, precision=precision)
+    A0, s0 = args[0][:1], args[1]
+    one = ok.onehot_apply_packed(A0, s0, **one_kw)
+    ref1 = ok.onehot_apply_packed_plain(A0, s0, **one_kw)
     assert (one - ref1).abs().max() <= 1e-6 * ref1.abs().max()

@@ -1,6 +1,6 @@
 """The one-hot kernel's numerics and launch plan on the CPU.
 
-- The six-term set against f32: the card's ``onehot_apply`` computes
+- The six-term set against f32: the card's ``onehot_apply_packed`` computes
   ``highest`` as the split6_bf16 terms (XLA's Precision.HIGHEST, bf16_6x),
   its plain version as an f32 product. ``_tile_matmul`` of the split6
   stacks agrees with the plain ``highest`` and with the JAX package's
@@ -66,8 +66,9 @@ def test_six_terms_match_f32_highest(seed):
     scale = float(f32.abs().max())
     assert float((six - f32).abs().max()) <= 1e-6 * scale
     # the same in the target layout against the JAX package
-    got = ok.onehot_apply_plain(A, slab, nty=2, ntx=2,
-                                precision="split6_bf16").numpy()
+    got = ok.onehot_apply_packed_plain((A,), slab, ranges=((0, 128),),
+                                       nty=2, ntx=2,
+                                       precision="split6_bf16").numpy()
     ref = np.asarray(fused_apply(A.numpy(), slab.numpy(), nty=2, ntx=2,
                                  precision="highest", interpret=True))
     assert got.shape == ref.shape == (64, 64, 128)

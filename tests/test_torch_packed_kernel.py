@@ -249,7 +249,7 @@ def card_operands(case, dev, seed=5):
         from mpassit_tpu_torch.config import Config
         from mpassit_tpu_torch.grids.target import build_target_grid
         from mpassit_tpu_torch.mesh.synthetic import synthetic_voronoi_mesh
-        from mpassit_tpu_torch.ops.matmul_apply import SlabMatmulRegridder
+        from mpassit_tpu_torch.ops.matmul_apply import PackedSlabRegridder
         from mpassit_tpu_torch.weights.conservative import (
             conservative_weights,
         )
@@ -261,7 +261,7 @@ def card_operands(case, dev, seed=5):
             "truelat1": 38.5, "stand_lon": -97.5}))
         ell = conservative_weights(mesh, grid)
         assert ell.k >= 12, ell.k
-        rg = SlabMatmulRegridder(ell, dev)
+        rg = PackedSlabRegridder([ell], dev)
         Cp, ranges = 256, ((0, 200),)
         src = torch.from_numpy(np.random.default_rng(seed).standard_normal(
             (rg.n_src, Cp)).astype(np.float32)).to(dev)

@@ -102,8 +102,9 @@ def test_f32_results_match_jax(f32_runs):
 
 def test_onehot_route_matches_jax(tmp_path, monkeypatch):
     """MPASSIT_ELL_KERNEL=0 under both packages: the port runs the one-hot
-    kernels' plain versions (one packed apply; the EDGE1/EDGE2 restaggers
-    and the vertex field, one single-method call each) and nothing else."""
+    packed kernel's plain version once per apply (the union of the cell
+    methods; the EDGE1/EDGE2 restaggers and the vertex field, one
+    operator each) and nothing else."""
     monkeypatch.setenv("MPASSIT_ELL_KERNEL", "0")
     mesh, cfg, _, _ = make_case(tmp_path)
     assert cfg.apply_precision == "split6_bf16"
@@ -113,8 +114,7 @@ def test_onehot_route_matches_jax(tmp_path, monkeypatch):
     got = tpipe.run_pipeline(_port(cfg), device="cpu")
     assert pk.PLAIN_CALLS == p0 and gk.PLAIN_CALLS == g0
     assert ok.PLAIN_CALLS == {
-        "onehot_apply": o0["onehot_apply"] + 3,
-        "onehot_apply_packed": o0["onehot_apply_packed"] + 1}
+        "onehot_apply_packed": o0["onehot_apply_packed"] + 4}
     _assert_results_close(got.result, ref.result, scale=1e-6)
 
 

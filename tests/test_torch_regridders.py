@@ -1,11 +1,12 @@
 """mpassit_tpu_torch.ops.matmul_apply against mpassit_tpu.ops.matmul_apply:
-the host pack byte for byte, and SlabMatmulRegridder /
-PackedSlabRegridder ``apply_np`` (rotation, block-list sources,
-strip_sink, root_only) against the JAX classes with backend="xla" and
-backend="pallas" (interpret mode). Tolerance: rtol 2e-6, atol 2e-5 (the
+the host pack byte for byte, and PackedSlabRegridder ``apply_np`` over one
+operator and over the union of three (rotation, block-list sources,
+strip_sink, root_only) against the JAX package's SlabMatmulRegridder and
+PackedSlabRegridder with backend="xla" and backend="pallas" (interpret
+mode). Tolerance: rtol 2e-6, atol 2e-5 (the
 R10 'highest' class, ~2e-7 max rel err of either arithmetic vs f64).
 
-The routes the switches pick: under MPASSIT_ELL_KERNEL=0 both regridders
+The routes the switches pick: under MPASSIT_ELL_KERNEL=0 both uses
 against the JAX classes under the same switch, for each precision, at
 rtol 1e-6 of the largest |ref| (the same terms summed in another order);
 under MPASSIT_GATHER_KERNEL=1 bit for bit the port's default route; the
@@ -29,6 +30,7 @@ from mpassit_tpu_torch.ops import gather_kernel as gk
 from mpassit_tpu_torch.ops import matmul_apply as tm
 from mpassit_tpu_torch.ops import onehot_kernel as ok
 from mpassit_tpu_torch.ops import packed_kernel as pk
+from mpassit_tpu_torch.spans import Timings, recording
 
 from test_weights import coarse_lambert_grid
 
@@ -59,6 +61,16 @@ def _rotation(ell, seed=3):
     ny, nx = ell.dst_shape
     alpha = np.random.default_rng(seed).uniform(-0.3, 0.3, (ny, nx))
     return np.cos(alpha).astype(np.float32), np.sin(alpha).astype(np.float32)
+
+
+def _rotated(ells, window, seed=3):
+    """The JAX package's rotate_spec for ``window`` (None: no rotation),
+    the port's ``rotation`` grid and its call's windows."""
+    if window is None:
+        return {}, {}, ()
+    cosa, sina = _rotation(ells[0], seed)
+    return ({"rotate_spec": ((window,), cosa, sina)},
+            {"rotation": (cosa, sina)}, (window,))
 
 
 @pytest.mark.parametrize("seed,shape", [(0, (40, 70, 500, 3)),
@@ -92,8 +104,7 @@ def test_pack_on_real_weights_and_cache(problem, tmp_path):
     cols = [5, 3, 2]
     jp = jm.PackedSlabRegridder(list(zip(ells, cols)), backend="xla",
                                 cache_dir=str(tmp_path))
-    tp = tm.PackedSlabRegridder(list(zip(ells, cols)), CPU,
-                                cache_dir=str(tmp_path))
+    tp = tm.PackedSlabRegridder(list(ells), CPU, cache_dir=str(tmp_path))
     assert (tp.W, tp.nty, tp.ntx, tp.n_tiles) == (jp.W, jp.nty, jp.ntx,
                                                   jp.n_tiles)
     np.testing.assert_array_equal(tp.slab_idx.numpy(),
@@ -106,8 +117,7 @@ def test_pack_on_real_weights_and_cache(problem, tmp_path):
     names = sorted(os.listdir(tmp_path))
     assert any(n.startswith("pack_") for n in names)
     assert any(n.startswith("torchpack_") for n in names)
-    again = tm.PackedSlabRegridder(list(zip(ells, cols)), CPU,
-                                   cache_dir=str(tmp_path))
+    again = tm.PackedSlabRegridder(list(ells), CPU, cache_dir=str(tmp_path))
     np.testing.assert_array_equal(again.slab_idx.numpy(),
                                   tp.slab_idx.numpy())
 
@@ -122,7 +132,7 @@ def test_slab_apply_np_matches_jax(small_mesh, backend):
     src = np.random.default_rng(5).standard_normal(
         (small_mesh.ncells, 3)).astype(np.float32)
     ref = jm.SlabMatmulRegridder(ell, backend=backend).apply_np(src)
-    rg = tm.SlabMatmulRegridder(ell, CPU)
+    rg = tm.PackedSlabRegridder([ell], CPU)
     np.testing.assert_allclose(rg.apply_np(src), ref, **TOL)
     np.testing.assert_allclose(rg.apply_np(src[:, 1]), ref[:, :, 1], **TOL)
     np.testing.assert_array_equal(rg.apply_np(src, root_only=True),
@@ -132,11 +142,11 @@ def test_slab_apply_np_matches_jax(small_mesh, backend):
 @pytest.mark.parametrize("C", [1, 128, 129, 600])
 def test_slab_blocks_and_strips(problem, C):
     """Block-list sources and strip streaming give the one-array result,
-    across the 128-column pad quantum and the 512-column launch groups."""
+    across the 128-column pad quantum and past FETCH columns."""
     mesh, _, (ell, _, _) = problem
     src = np.random.default_rng(C).standard_normal(
         (mesh.ncells, C)).astype(np.float32)
-    rg = tm.SlabMatmulRegridder(ell, CPU)
+    rg = tm.PackedSlabRegridder([ell], CPU)
     full = rg.apply_np(src)
     ref = jm.SlabMatmulRegridder(ell, backend="xla").apply_np(src)
     np.testing.assert_allclose(full, ref, **TOL)
@@ -156,6 +166,22 @@ def test_slab_blocks_and_strips(problem, C):
         dev[:ell.dst_shape[0], :ell.dst_shape[1]].numpy(), full)
 
 
+def test_one_operator_takes_any_columns_per_call(problem):
+    """One operator, built once, applied in turn to 3, 130 and 600 columns
+    (one array, then a block list): each call equals the JAX package's
+    SlabMatmulRegridder on the same source."""
+    mesh, _, (ell, _, _) = problem
+    rg = tm.PackedSlabRegridder([ell], CPU)
+    jr = jm.SlabMatmulRegridder(ell, backend="xla")
+    for C in (3, 130, 600):
+        src = np.random.default_rng(C + 1).standard_normal(
+            (mesh.ncells, C)).astype(np.float32)
+        ref = jr.apply_np(src)
+        np.testing.assert_allclose(rg.apply_np(src), ref, **TOL)
+        blocks = [src[:, :C // 2], src[:, C // 2:]]
+        np.testing.assert_allclose(rg.apply_np(blocks), ref, **TOL)
+
+
 @pytest.mark.parametrize("backend", ["xla", "pallas"])
 @pytest.mark.parametrize("rotate", [False, True])
 def test_packed_apply_np_matches_jax(problem, backend, rotate):
@@ -163,27 +189,25 @@ def test_packed_apply_np_matches_jax(problem, backend, rotate):
     cols = [5, 3, 2]
     src = np.random.default_rng(10).standard_normal(
         (mesh.ncells, sum(cols))).astype(np.float32)
-    kw = {}
-    if rotate:
-        cosa, sina = _rotation(ells[0])
-        kw["rotate_spec"] = (((0, 2, 2),), cosa, sina)
+    jkw, kw, rot = _rotated(ells, (0, 2, 2) if rotate else None)
     ref = jm.PackedSlabRegridder(list(zip(ells, cols)), backend=backend,
-                                 **kw).apply_np(src)
-    pk_ = tm.PackedSlabRegridder(list(zip(ells, cols)), CPU, **kw)
-    got = pk_.apply_np(src)
+                                 **jkw).apply_np(src)
+    pk_ = tm.PackedSlabRegridder(list(ells), CPU, **kw)
+    got = pk_.apply_np(src, cols, rot)
     assert got.shape == ref.shape == ells[0].dst_shape + (10,)
     np.testing.assert_allclose(got, ref, **TOL)
     blocks = [src[:, :4], src[:, 4:9], src[:, 9]]
-    np.testing.assert_array_equal(pk_.apply_np(blocks), got)
+    np.testing.assert_array_equal(pk_.apply_np(blocks, cols, rot), got)
     strips = {}
-    pk_.apply_np(blocks, strip_sink=lambda lo, s: strips.__setitem__(lo, s))
+    pk_.apply_np(blocks, cols, rot,
+                 strip_sink=lambda lo, s: strips.__setitem__(lo, s))
     np.testing.assert_array_equal(
         np.concatenate([strips[k] for k in sorted(strips)], axis=2), got)
-    dev = pk_(torch.from_numpy(src))
+    dev = pk_(torch.from_numpy(src), cols, rot)
     ny, nx = ells[0].dst_shape
     np.testing.assert_array_equal(dev[:ny, :nx].numpy(), got)
     with pytest.raises(ValueError, match="columns"):
-        pk_(torch.from_numpy(src[:, :9]))
+        pk_(torch.from_numpy(src[:, :9]), cols)
 
 
 def test_packed_wide_rotation_matches_jax(problem):
@@ -193,24 +217,30 @@ def test_packed_wide_rotation_matches_jax(problem):
     cols = [280, 12, 8]
     src = np.random.default_rng(11).standard_normal(
         (mesh.ncells, sum(cols))).astype(np.float32)
-    cosa, sina = _rotation(ells[0], seed=4)
-    spec = (((0, 55, 55),), cosa, sina)
+    jkw, kw, rot = _rotated(ells, (0, 55, 55), seed=4)
     ref = jm.PackedSlabRegridder(list(zip(ells, cols)), backend="xla",
-                                 rotate_spec=spec).apply_np(src)
-    got = tm.PackedSlabRegridder(list(zip(ells, cols)), CPU,
-                                 rotate_spec=spec).apply_np(src)
+                                 **jkw).apply_np(src)
+    got = tm.PackedSlabRegridder(list(ells), CPU, **kw).apply_np(
+        src, cols, rot)
     np.testing.assert_allclose(got, ref, **TOL)
 
 
 def test_rotate_window_outside_chunk_raises(problem):
-    _, _, ells = problem
+    """Refused as in the JAX package, by the call, before any upload."""
+    mesh, _, ells = problem
     cosa, sina = _rotation(ells[0])
-    spec = list(zip(ells, [5, 3, 2]))
+    cols = [5, 3, 2]
+    rg = tm.PackedSlabRegridder(list(ells), CPU, rotation=(cosa, sina))
+    src = np.ones((mesh.ncells, sum(cols)), np.float32)
+    t = Timings()
+    with recording(t), pytest.raises(ValueError, match="rotate window"):
+        rg.apply_np(src, cols, ((0, 8, 4),))
+    assert "apply.upload_bytes" not in t.counts
     with pytest.raises(ValueError, match="rotate window"):
-        tm.PackedSlabRegridder(spec, CPU,
+        rg(torch.from_numpy(src), cols, ((0, 8, 4),))
+    with pytest.raises(ValueError, match="rotate window"):
+        jm.PackedSlabRegridder(list(zip(ells, cols)),
                                rotate_spec=(((0, 8, 4),), cosa, sina))
-    with pytest.raises(ValueError, match="rotate window"):
-        jm.PackedSlabRegridder(spec, rotate_spec=(((0, 8, 4),), cosa, sina))
 
 
 def test_w_cap_overflow_raises():
@@ -221,7 +251,7 @@ def test_w_cap_overflow_raises():
     idx = rng.integers(0, n_src, (32 * 32, K))
     ell = ELLWeights(idx=idx, w=np.full((32 * 32, K), 1.0 / K), n_src=n_src,
                      method="bilinear", dst_shape=(32, 32))
-    for cls in (lambda e: tm.SlabMatmulRegridder(e, CPU),
+    for cls in (lambda e: tm.PackedSlabRegridder([e], CPU),
                 lambda e: jm.SlabMatmulRegridder(e, backend="xla")):
         with pytest.raises(ValueError, match="unique source rows"):
             cls(ell)
@@ -232,18 +262,21 @@ def test_precision_validated(problem):
     _, _, (ell, _, _) = problem
     assert tm.PRECISIONS == jm.PRECISIONS
     with pytest.raises(ValueError, match="precision"):
-        tm.SlabMatmulRegridder(ell, CPU, precision="bf16")
+        tm.PackedSlabRegridder([ell], CPU, precision="bf16")
 
 
-def test_cpu_applies_never_launch(problem):
+def test_cpu_applies_never_launch(problem, monkeypatch):
     """On the CPU every apply runs the plain version: the launch counter
     stays put, the plain counter grows by one per kernel-shaped call."""
     mesh, _, (ell, _, _) = problem
-    rg = tm.SlabMatmulRegridder(ell, CPU)
-    src = np.ones((mesh.ncells, 700), np.float32)      # two launch groups
+    rg = tm.PackedSlabRegridder([ell], CPU)
+    src = np.ones((mesh.ncells, 700), np.float32)
+    monkeypatch.setenv("MPASSIT_DEVICE_BUDGET_GB", "0.001")
+    gw = rg._grouped_width(768)                   # several launch groups
     launches, plain = pk.LAUNCHES, pk.PLAIN_CALLS
     rg.apply_np(src)
-    assert pk.LAUNCHES == launches and pk.PLAIN_CALLS == plain + 2
+    assert pk.LAUNCHES == launches
+    assert pk.PLAIN_CALLS == plain + -(-768 // gw)
 
 
 # ------------------------------------------------ one-hot and gather routes
@@ -276,7 +309,8 @@ def test_onehot_route_slab_matches_jax(small_mesh, monkeypatch, backend,
                                        precision):
     """MPASSIT_ELL_KERNEL=0: the JAX package applies its prestacked one-hot
     A (fused_apply under backend="pallas", _tile_matmul under "xla"); the
-    port builds the f32 A and runs onehot_apply's plain version."""
+    port builds the f32 A and runs onehot_apply_packed's plain version
+    over one range."""
     monkeypatch.setenv("MPASSIT_ELL_KERNEL", "0")
     ell = _slab_ell(small_mesh)
     ny, nx = ell.dst_shape
@@ -285,17 +319,16 @@ def test_onehot_route_slab_matches_jax(small_mesh, monkeypatch, backend,
     jr = jm.SlabMatmulRegridder(ell, precision=precision, backend=backend)
     ref = jr.apply_np(src)
     ref_dev = np.asarray(jr(src))[:ny, :nx]
-    rg = tm.SlabMatmulRegridder(ell, CPU, precision=precision)
+    rg = tm.PackedSlabRegridder([ell], CPU, precision=precision)
     assert rg.route == "onehot"
     (p0, o0, g0), launches = _plain_counts(), dict(ok.LAUNCHES)
     got = rg.apply_np(src)
     dev = rg(torch.from_numpy(src))
     assert pk.PLAIN_CALLS == p0 and gk.PLAIN_CALLS == g0
-    assert ok.PLAIN_CALLS == {"onehot_apply": o0["onehot_apply"] + 2,
-                              "onehot_apply_packed":
-                                  o0["onehot_apply_packed"]}
+    assert ok.PLAIN_CALLS == {"onehot_apply_packed":
+                              o0["onehot_apply_packed"] + 2}
     assert ok.LAUNCHES == launches
-    assert rg.A.shape == (rg.n_tiles, rg.W, 1024)
+    assert [A.shape for A in rg.As] == [(rg.n_tiles, rg.W, 1024)]
     _close(got, ref)
     _close(dev[:ny, :nx].numpy(), ref_dev)
 
@@ -309,24 +342,21 @@ def test_onehot_route_packed_matches_jax(problem, monkeypatch, backend,
     monkeypatch.setenv("MPASSIT_ELL_KERNEL", "0")
     mesh, _, ells = problem
     cols = [5, 3, 2]
-    cosa, sina = _rotation(ells[0])
-    spec = (((0, 2, 2),), cosa, sina)
+    jkw, kw, rot = _rotated(ells, (0, 2, 2))
     src = np.random.default_rng(12).standard_normal(
         (mesh.ncells, sum(cols))).astype(np.float32)
     jr = jm.PackedSlabRegridder(list(zip(ells, cols)), precision=precision,
-                                backend=backend, rotate_spec=spec)
+                                backend=backend, **jkw)
     ref = jr.apply_np(src)
     ref_dev = np.asarray(jr(src))
-    rg = tm.PackedSlabRegridder(list(zip(ells, cols)), CPU,
-                                precision=precision, rotate_spec=spec)
+    rg = tm.PackedSlabRegridder(list(ells), CPU, precision=precision, **kw)
     assert rg.route == "onehot"
     p0, o0, g0 = _plain_counts()
-    got = rg.apply_np(src)
-    dev = rg(torch.from_numpy(src)).numpy()
+    got = rg.apply_np(src, cols, rot)
+    dev = rg(torch.from_numpy(src), cols, rot).numpy()
     assert pk.PLAIN_CALLS == p0 and gk.PLAIN_CALLS == g0
-    assert ok.PLAIN_CALLS == {"onehot_apply": o0["onehot_apply"],
-                              "onehot_apply_packed":
-                                  o0["onehot_apply_packed"] + 2}
+    assert ok.PLAIN_CALLS == {"onehot_apply_packed":
+                              o0["onehot_apply_packed"] + 2}
     assert [A.shape for A in rg.As] == [(rg.n_tiles, rg.W, 1024)] * 3
     _close(got, ref)
     _close(dev, ref_dev[:dev.shape[0]])
@@ -336,37 +366,35 @@ def test_onehot_wins_over_gather(problem, monkeypatch):
     _, _, (ell, _, _) = problem
     monkeypatch.setenv("MPASSIT_GATHER_KERNEL", "1")
     monkeypatch.setenv("MPASSIT_ELL_KERNEL", "0")
-    assert tm.SlabMatmulRegridder(ell, CPU).route == "onehot"
+    assert tm.PackedSlabRegridder([ell], CPU).route == "onehot"
     monkeypatch.setenv("MPASSIT_ELL_KERNEL", "1")
-    assert tm.SlabMatmulRegridder(ell, CPU).route == "gather"
+    assert tm.PackedSlabRegridder([ell], CPU).route == "gather"
     monkeypatch.delenv("MPASSIT_GATHER_KERNEL")
-    assert tm.SlabMatmulRegridder(ell, CPU).route == "ell"
+    assert tm.PackedSlabRegridder([ell], CPU).route == "ell"
 
 
 @pytest.mark.parametrize("C", [3, 600])
 def test_gather_route_slab_equals_default(problem, monkeypatch, tmp_path, C):
     """MPASSIT_GATHER_KERNEL=1: bit for bit the default route. apply_np
-    gathers in the kernel up to FETCH columns and takes the default route
-    beyond (600 columns pad to 640 > FETCH); __call__ always gathers in
-    the kernel. The chunk layout is cached as its own entry."""
+    and __call__ each make one gather launch at every width, past FETCH
+    columns too (600 columns pad to 640): the gather route is never
+    grouped. The chunk layout is cached as its own entry."""
     mesh, _, (ell, _, _) = problem
     src = np.random.default_rng(C).standard_normal(
         (mesh.ncells, C)).astype(np.float32)
-    base = tm.SlabMatmulRegridder(ell, CPU)
+    base = tm.PackedSlabRegridder([ell], CPU)
     ref, ref_dev = base.apply_np(src), base(torch.from_numpy(src))
     monkeypatch.setenv("MPASSIT_GATHER_KERNEL", "1")
-    rg = tm.SlabMatmulRegridder(ell, CPU, cache_dir=str(tmp_path))
+    rg = tm.PackedSlabRegridder([ell], CPU, cache_dir=str(tmp_path))
     p0, o0, g0 = _plain_counts()
     got = rg.apply_np(src)
-    wide = C + (-C) % tm.LANE > tm.FETCH
-    assert gk.PLAIN_CALLS == g0 + (0 if wide else 1)
-    assert pk.PLAIN_CALLS == p0 + (2 if wide else 0)
+    assert gk.PLAIN_CALLS == g0 + 1 and pk.PLAIN_CALLS == p0
     np.testing.assert_array_equal(got, ref)
     assert torch.equal(rg(torch.from_numpy(src)), ref_dev)
-    assert gk.PLAIN_CALLS == g0 + (1 if wide else 2)
+    assert gk.PLAIN_CALLS == g0 + 2 and pk.PLAIN_CALLS == p0
     assert ok.PLAIN_CALLS == o0
     assert any(n.startswith("torchgather") for n in os.listdir(tmp_path))
-    again = tm.SlabMatmulRegridder(ell, CPU, cache_dir=str(tmp_path))
+    again = tm.PackedSlabRegridder([ell], CPU, cache_dir=str(tmp_path))
     ch, locs8, _ = again._gather_dev()
     assert again.W8 == rg.W8 and torch.equal(ch, rg._gather_dev()[0])
     assert torch.equal(locs8[0], rg._gather_dev()[1][0])
@@ -377,21 +405,20 @@ def test_gather_route_packed_equals_default(problem, monkeypatch):
     bit for bit the default route (apply_np, block lists, __call__)."""
     mesh, _, ells = problem
     cols = [280, 12, 8]
-    cosa, sina = _rotation(ells[0], seed=4)
-    spec = (((0, 55, 55),), cosa, sina)
+    _, kw, rot = _rotated(ells, (0, 55, 55), seed=4)
     src = np.random.default_rng(13).standard_normal(
         (mesh.ncells, sum(cols))).astype(np.float32)
-    base = tm.PackedSlabRegridder(list(zip(ells, cols)), CPU,
-                                  rotate_spec=spec)
-    ref, ref_dev = base.apply_np(src), base(torch.from_numpy(src))
+    base = tm.PackedSlabRegridder(list(ells), CPU, **kw)
+    ref = base.apply_np(src, cols, rot)
+    ref_dev = base(torch.from_numpy(src), cols, rot)
     monkeypatch.setenv("MPASSIT_GATHER_KERNEL", "1")
-    rg = tm.PackedSlabRegridder(list(zip(ells, cols)), CPU, rotate_spec=spec)
-    assert rg.route == "gather" and rg.rotate == ((0, 55, 55),)
+    rg = tm.PackedSlabRegridder(list(ells), CPU, **kw)
+    assert rg.route == "gather" and rg._cosa_t is not None
     p0, o0, g0 = _plain_counts()
-    np.testing.assert_array_equal(rg.apply_np(src), ref)
+    np.testing.assert_array_equal(rg.apply_np(src, cols, rot), ref)
     np.testing.assert_array_equal(
-        rg.apply_np([src[:, :100], src[:, 100:]]), ref)
-    assert torch.equal(rg(torch.from_numpy(src)), ref_dev)
+        rg.apply_np([src[:, :100], src[:, 100:]], cols, rot), ref)
+    assert torch.equal(rg(torch.from_numpy(src), cols, rot), ref_dev)
     assert gk.PLAIN_CALLS == g0 + 3
     assert pk.PLAIN_CALLS == p0 and ok.PLAIN_CALLS == o0
     assert rg.W8 >= rg.W and rg.W8 % tm.CH == 0

@@ -188,21 +188,29 @@ def test_device_mesh_rules(tmp_path, monkeypatch):
 
 
 def test_fetch_counts_the_gathered_chunks():
-    """The budget's fetch term: one chunk without a process group, the
-    contiguous chunk and every rank's gathered chunk under one."""
+    """The budget's fetch term: the two chunks in flight without a process
+    group; under one each chunk also holds this rank's own part, made
+    contiguous for the gather. A chunk is one row of every rank where
+    that is more than FETCH_CHUNK."""
     cpu = torch.device("cpu")
-    assert tm._fetch_bytes(None) == tm.FETCH_TMP
-    assert tm._fetch_bytes(GridMesh(0, 1, cpu)) == tm.FETCH_TMP
-    assert tm._fetch_bytes(GridMesh(1, 4, cpu, object())) == \
-        5 * tm.FETCH_TMP
+    group = GridMesh(1, 4, cpu, object())
+    assert tm._fetch_bytes(None) == 2 * tm.FETCH_CHUNK
+    assert tm._fetch_bytes(GridMesh(0, 1, cpu)) == 2 * tm.FETCH_CHUNK
+    assert tm._fetch_bytes(group) == \
+        2 * (tm.FETCH_CHUNK + tm.FETCH_CHUNK // 4)
+    assert tm._fetch_bytes(None, tm.FETCH_CHUNK) == 2 * tm.FETCH_CHUNK
+    assert tm._fetch_bytes(None, tm.FETCH_CHUNK + 4) == \
+        2 * (tm.FETCH_CHUNK + 4)
+    row = tm.FETCH_CHUNK // 2                  # 4 ranks: a 2-chunk row
+    assert tm._fetch_bytes(group, row) == 2 * (4 * row + row)
 
 
 def test_gather_route_is_off_under_a_mesh(problem, monkeypatch):
     monkeypatch.setenv("MPASSIT_GATHER_KERNEL", "1")
     e = problem["ells"]["bilinear"]
     cpu = torch.device("cpu")
-    assert tm.SlabMatmulRegridder(e, cpu).route == "gather"
-    rg = tm.SlabMatmulRegridder(e, cpu, mesh=GridMesh(1, 2, cpu))
+    assert tm.PackedSlabRegridder([e], cpu).route == "gather"
+    rg = tm.PackedSlabRegridder([e], cpu, mesh=GridMesh(1, 2, cpu))
     assert rg.route == "ell"
     assert (rg.nty, rg.nty_l, rg.nty_p, rg.n_tiles) == (5, 3, 6, 3 * rg.ntx)
 

@@ -8,12 +8,12 @@ hold its chunks and buffers to the device result bit for bit: one chunk
 or many, an odd and an even number of them with a short last one (both
 buffers used, and used again), a column count that is not a multiple of
 CB, groups that start past column 0, several column groups of an apply
-(``MPASSIT_DEVICE_BUDGET_GB``, and the FETCH-column groups of
-SlabMatmulRegridder), with and without a strip sink; the counters; the
-buffers kept across calls. On a CUDA card only: the buffers page-locked
-and allocated once, every fetched byte staged, the result the CPU fetch's
-of the same device result, and the fetch's device memory within
-FETCH_TMP.
+(``MPASSIT_DEVICE_BUDGET_GB``, over three operators and over one), with
+and without a strip sink; the counters; the buffers kept across calls.
+On a CUDA card only: the buffers page-locked and allocated once, every
+fetched byte staged, the result the CPU fetch's of the same device
+result, and the fetch's device memory within what the grouped apply's
+budget reserves for it (``_fetch_bytes``).
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
         tests/test_torch_staged_fetch.py
@@ -109,7 +109,7 @@ def test_fetch_equals_the_device_result(monkeypatch, width, C, lo0, rows,
     ref = o[:NY, :NX, :hi - lo0].numpy()
     # a chunk of ``rows`` rows of the first strip's columns
     w0 = min(tm.CB if sink else hi - lo0, hi - lo0)
-    monkeypatch.setattr(tm, "FETCH_TMP", tm.FETCH_CHUNKS * 4 * NX * w0 * rows)
+    monkeypatch.setattr(tm, "FETCH_CHUNK", 4 * NX * w0 * rows)
     chunks = _count_chunks(monkeypatch)
     out = np.full((NY, NX, C), np.nan, np.float32)
     strips = {}
@@ -140,24 +140,24 @@ def test_apply_equals_the_device_result(monkeypatch, kind, sink):
     if kind == "packed_grouped":
         cols = [500, 80, 60]                  # C 640: not a multiple of CB
         rg = tm.PackedSlabRegridder(
-            [(_ell(off, seed=i), c) for i, (off, c) in enumerate(zip(
-                ([0, 1, NX], [0], [0, -1, 1, -NX]), cols))], CPU)
-        monkeypatch.setenv("MPASSIT_DEVICE_BUDGET_GB", TINY)
-        assert rg._grouped_width() == tm.LANE       # 5 groups
+            [_ell(off, seed=i) for i, off in enumerate(
+                ([0, 1, NX], [0], [0, -1, 1, -NX]))], CPU)
     else:
-        cols = [600]                          # groups [0, 512), [512, 640)
-        rg = tm.SlabMatmulRegridder(_ell([0, 1, NX]), CPU)
+        cols = [600]                          # one operator, C 640
+        rg = tm.PackedSlabRegridder([_ell([0, 1, NX])], CPU)
+    monkeypatch.setenv("MPASSIT_DEVICE_BUDGET_GB", TINY)
+    assert rg._grouped_width(640) == tm.LANE        # 5 groups
     src = np.random.default_rng(5).standard_normal(
         (NY * NX, sum(cols))).astype(np.float32)
-    ref = rg(torch.from_numpy(src))[:NY, :NX].numpy()
-    monkeypatch.setattr(tm, "FETCH_TMP",
-                        tm.FETCH_CHUNKS * 4 * NX * tm.LANE * 3)
+    ref = rg(torch.from_numpy(src), cols)[:NY, :NX].numpy()
+    monkeypatch.setattr(tm, "FETCH_CHUNK", 4 * NX * tm.LANE * 3)
     if sink:
         strips = {}
-        assert rg.apply_np(src, strip_sink=_sink_into(strips)) is None
+        assert rg.apply_np(src, cols,
+                           strip_sink=_sink_into(strips)) is None
         got = _joined(strips)
     else:
-        got = rg.apply_np(src)
+        got = rg.apply_np(src, cols)
     np.testing.assert_array_equal(got, ref)
 
 
@@ -165,7 +165,7 @@ def test_counts_and_buffers_on_the_cpu():
     """On the CPU nothing is staged through page-locked memory: the
     counter reads 0 beside every fetched byte, and the plain buffers are
     made once and kept."""
-    rg = tm.SlabMatmulRegridder(_ell([0, 1, NX]), CPU)
+    rg = tm.PackedSlabRegridder([_ell([0, 1, NX])], CPU)
     src = np.random.default_rng(6).standard_normal(
         (NY * NX, 300)).astype(np.float32)
     ptrs = []
@@ -185,17 +185,19 @@ def test_counts_and_buffers_on_the_cpu():
 def test_staging_buffers_on_the_card(cuda_device):
     """Page-locked, allocated once for every apply and every recorded
     call, every fetched byte staged, the result the CPU fetch's."""
-    rg = tm.PackedSlabRegridder([(_ell([0, 1, NX]), 200),
-                                 (_ell([0], seed=1), 56)], cuda_device)
+    rg = tm.PackedSlabRegridder([_ell([0, 1, NX]), _ell([0], seed=1)],
+                                cuda_device)
+    cols = [200, 56]
     src = np.random.default_rng(7).standard_normal(
         (NY * NX, 256)).astype(np.float32)
-    ref = rg(torch.from_numpy(src).to(cuda_device))[:NY, :NX].cpu().numpy()
+    ref = rg(torch.from_numpy(src).to(cuda_device),
+             cols)[:NY, :NX].cpu().numpy()
     st = tm._staging(cuda_device)
     ptrs = []
     for recorded in (False, False, True, True):
         t = spans.Timings()
         with spans.recording(t if recorded else None):
-            got = rg.apply_np(src)
+            got = rg.apply_np(src, cols)
         np.testing.assert_array_equal(got, ref)
         assert st.pinned and len(st.bufs) == 2
         assert all(b.is_pinned() for b in st.bufs)
@@ -210,8 +212,9 @@ def test_staging_buffers_on_the_card(cuda_device):
 @pytest.mark.parametrize("sink", [False, True])
 def test_staged_fetch_memory_on_the_card(cuda_device, sink):
     """A result of ~0.6 GB crosses in several chunks; the device holds no
-    more than FETCH_TMP beyond it meanwhile, and the host gets what the
-    CPU fetch of the same result gets."""
+    more beyond it meanwhile than the grouped apply's budget reserves for
+    a fetch, and the host gets what the CPU fetch of the same result
+    gets."""
     ny, nx, C = 300, 1800, 250
     o = torch.randn((320, 1824, 256), device=cuda_device)
     ref = np.empty((ny, nx, C), np.float32)
@@ -225,7 +228,7 @@ def test_staged_fetch_memory_on_the_card(cuda_device, sink):
         tm._fetch_strips(o, C, ny, nx, 0, False, None if sink else out,
                          _sink_into(strips) if sink else None)
     peak = torch.cuda.max_memory_allocated(cuda_device)
-    assert peak - before <= tm.FETCH_TMP
+    assert peak - before <= tm._fetch_bytes(None)
     np.testing.assert_array_equal(_joined(strips) if sink else out, ref)
     assert (t.counts["apply.fetch_staged_bytes"]
             == t.counts["apply.fetch_bytes"] == ref.nbytes)

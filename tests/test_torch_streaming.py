@@ -101,8 +101,9 @@ def test_streamed_seams_multiple_strips_per_var(tmp_path, monkeypatch, cb,
                                                 fetch):
     """A strip width below nz: every 3-D variable (PHB/Z_C stitching and
     the P_HYD top level feeding P_TOP included) spans several strips with
-    odd level boundaries. CB and FETCH are patched for both runs (FETCH
-    stays a multiple of the kernels' 128-column block)."""
+    odd level boundaries. CB and FETCH, where the group rule starts, are
+    patched for both runs (FETCH stays a multiple of the kernels'
+    128-column block)."""
     monkeypatch.setattr(tm, "CB", cb)
     monkeypatch.setattr(tm, "FETCH", fetch)
     cfg1, cfg2, _ = _run_both(tmp_path, nz=5)
@@ -127,19 +128,19 @@ def test_streamed_grouped_equals_in_memory_full_width(tmp_path, monkeypatch):
     in-memory run's in one pass; the files are identical."""
     seen, groups = [], []
     width = tm.PackedSlabRegridder._grouped_width
-    padded = tm.PackedSlabRegridder._apply_padded
+    padded = tm.PackedSlabRegridder._apply
 
-    def width_spy(self):
-        gw = width(self)
+    def width_spy(self, Cp, rotate=()):
+        gw = width(self, Cp, rotate)
         if gw:
-            seen.append((self.Cp, gw))
+            seen.append((Cp, gw))
         return gw
 
-    def padded_spy(self, src_dev, g=0):
+    def padded_spy(self, src_dev, ranges, g=0, rotate=()):
         groups.append(g)
-        return padded(self, src_dev, g)
+        return padded(self, src_dev, ranges, g, rotate)
     monkeypatch.setattr(tm.PackedSlabRegridder, "_grouped_width", width_spy)
-    monkeypatch.setattr(tm.PackedSlabRegridder, "_apply_padded", padded_spy)
+    monkeypatch.setattr(tm.PackedSlabRegridder, "_apply", padded_spy)
     monkeypatch.delenv("MPASSIT_DEVICE_BUDGET_GB", raising=False)
     cfg1, cfg2, _ = _run_both(tmp_path, {"MPASSIT_DEVICE_BUDGET_GB": "1e-4"},
                               monkeypatch, nz=64)
