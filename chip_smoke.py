@@ -444,6 +444,29 @@ def ell_f64(ell, pts, src):
                      s[np.asarray(ell.idx)[pts]])
 
 
+def run_weights(art, file_order=False):
+    """The weights the run of ``art`` applied, built on its renumbered
+    cells (``renumbered_cells``), so the weight cache's entries; with
+    ``file_order`` the cell methods' source indices mapped back to the
+    input file's cell order, the order of ``art.mesh`` and ``art.data``."""
+    import dataclasses
+
+    from mpassit_tpu_torch.run.pipeline import (
+        CELL_KEYS,
+        build_weights,
+        renumbered_cells,
+    )
+
+    ro = renumbered_cells(art.cfg, art.mesh, art.grid)
+    W = build_weights(art.cfg, art.mesh if ro is None else ro.mesh,
+                      art.grid, art.routing)
+    if file_order and ro is not None:
+        for k in CELL_KEYS:
+            if k in W:
+                W[k] = dataclasses.replace(W[k], idx=ro.perm[W[k].idx])
+    return W
+
+
 def check_outputs(art, n_sample, seed):
     """Sampled target points of every RegridResult variable against a
     float64 numpy evaluation of the same ELL weights. Returns
@@ -451,12 +474,11 @@ def check_outputs(art, n_sample, seed):
     import numpy as np
 
     from mpassit_tpu_torch.constants import PROJ_LC
-    from mpassit_tpu_torch.run.pipeline import build_weights
     from mpassit_tpu_torch.weights.restagger import with_pole_rows
 
     cfg, grid, mesh, routing = art.cfg, art.grid, art.mesh, art.routing
     data, res = art.data, art.result
-    W = build_weights(cfg, mesh, grid, routing)      # weight-cache hits
+    W = run_weights(art, file_order=True)            # weight-cache hits
     rng = np.random.default_rng(seed)
 
     def sample(n_pts):
@@ -647,10 +669,8 @@ def kernel_vs_plain(art, device, seed, launches_per_run, pack_geom,
         group_ranges,
         padded,
     )
-    from mpassit_tpu_torch.run.pipeline import build_weights
-
     cfg, grid = art.cfg, art.grid
-    W = build_weights(cfg, art.mesh, grid, art.routing)
+    W = run_weights(art)
     rng = np.random.default_rng(seed)
     nz = art.mesh.nz
     cases = []
@@ -869,8 +889,7 @@ def kernel_vs_plain(art, device, seed, launches_per_run, pack_geom,
         keys = ("bilinear", "nearest", "conserve")
         if len(m_cols) != len(keys):
             raise AssertionError(f"unexpected mercator pack {m_cols}")
-        mW = build_weights(m_art.cfg, m_art.mesh, m_art.grid,
-                           m_art.routing)
+        mW = run_weights(m_art)
         mp = PackedSlabRegridder([mW[k] for k in keys], device,
                                  cache_dir=m_art.cfg.weights_cache_dir)
         if mp._cosa_t is not None:
@@ -1033,10 +1052,9 @@ def kernel_variants_phase(art, device, seed, reduced):
     """The kernel-variants tool in-process on this mesh's bilinear
     operator (weights from the run's cache) at the full target width and
     512 columns. Returns the phase's launches."""
-    from mpassit_tpu_torch.run.pipeline import build_weights
     from mpassit_tpu_torch.tools.kernel_variants import run_variants
 
-    W = build_weights(art.cfg, art.mesh, art.grid, art.routing)
+    W = run_weights(art)
     _zero_counters()
     t0 = time.perf_counter()
     res = run_variants(W["bilinear"], device, cols=512, seed=seed,
@@ -1313,7 +1331,6 @@ def streamed_phase(pipeline, nml, default_art, device, seed, reduced,
     import torch
 
     from mpassit_tpu_torch.ops import packed_kernel as pk
-    from mpassit_tpu_torch.run.pipeline import build_weights
 
     res, grid = default_art.result, default_art.grid
     ref = {k.split(".", 1)[1]: v for k, v in _result_arrays(res).items()
@@ -1346,7 +1363,7 @@ def streamed_phase(pipeline, nml, default_art, device, seed, reduced,
     art.regridders.clear()
     expected = expected_launches("ell", calls)
     # the vertex-located fields against a float64 evaluation
-    W = build_weights(art.cfg, art.mesh, art.grid, art.routing)
+    W = run_weights(art)
     vert = {}
     for s in art.routing.vert_3d:
         want = ell_f64(W["vertex"], pts, art.data.fields[s.in_name])

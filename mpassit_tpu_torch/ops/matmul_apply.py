@@ -55,10 +55,11 @@ column group's upload ``apply.upload`` and its fetch ``apply.fetch``; the
 counters ``apply.upload_bytes``, ``apply.fetch_bytes`` (host bytes each
 way), ``apply.fetch_staged_bytes`` (the fetched bytes that crossed
 through page-locked staging buffers: all of them on a CUDA device, 0 on
-the CPU), ``apply.groups`` (launches), ``apply.slab_bytes`` (what each
-launch's tiles stage from the source: tiles x slab rows x the launch's
-columns x 4; slab rows are W, or W8 on the gather route) and
-``pack.cache_hits``/``_misses``.
+the CPU), ``apply.renumbered_bytes`` (the uploaded bytes renumbered into
+the operator's row order as they land, ``perm_inv``), ``apply.groups``
+(launches), ``apply.slab_bytes`` (what each launch's tiles stage from the
+source: tiles x slab rows x the launch's columns x 4; slab rows are W, or
+W8 on the gather route) and ``pack.cache_hits``/``_misses``.
 """
 
 from __future__ import annotations
@@ -370,7 +371,16 @@ def _chunk_slab_cached(slab_idx, loc, loc_w, W, dst_shape, cache_dir=None,
     return ch_src, loc8, W8
 
 
-def _src_window_to_device(src, lo, gw, device, pad_rows=0):
+def _land(dst, rows, perm_inv):
+    """Copy the device rows ``rows`` into ``dst`` (a view of as many rows):
+    row for row, or, with ``perm_inv``, row i into row perm_inv[i]."""
+    if perm_inv is None:
+        dst.copy_(rows)
+    else:
+        dst.index_copy_(0, perm_inv, rows)
+
+
+def _src_window_to_device(src, lo, gw, device, pad_rows=0, perm_inv=None):
     """Packed columns [lo, lo + gw) of a host source -> (n_src + pad_rows,
     gw) f32 device tensor, zero past the data (and in the pad rows: the
     gather route's chunks may read CH rows past n_src). The full-width
@@ -380,7 +390,9 @@ def _src_window_to_device(src, lo, gw, device, pad_rows=0):
     each block is sliced to the window, converted and copied into a
     preallocated device buffer, so the host never materializes the
     concatenated matrix, and converts only the window's columns (the JAX
-    package's copy converts the whole block first)."""
+    package's copy converts the whole block first). With ``perm_inv`` (a
+    device int64 (n_src,) vector) the source rows are renumbered as they
+    land: host row i becomes buffer row perm_inv[i]."""
     blocks = src if isinstance(src, (list, tuple)) else [src]
     n_src = np.shape(blocks[0])[0]
     with span("apply.upload"):
@@ -394,10 +406,13 @@ def _src_window_to_device(src, lo, gw, device, pad_rows=0):
                 win = (np.asarray(b)[:, None] if np.ndim(b) == 1
                        else b[:, a - off:c - off])
                 win = np.ascontiguousarray(win, dtype=np.float32)
-                buf[:n_src, a - lo:c - lo] = torch.from_numpy(win).to(device)
+                _land(buf[:n_src, a - lo:c - lo],
+                      torch.from_numpy(win).to(device), perm_inv)
                 nbytes += win.nbytes
             off += bw
     count("apply.upload_bytes", nbytes)
+    if perm_inv is not None:
+        count("apply.renumbered_bytes", nbytes)
     return buf
 
 
@@ -608,6 +623,14 @@ class PackedSlabRegridder:
     method's range raises ValueError before anything is uploaded, as in
     the JAX package, so that both packages take the same rotation route.
 
+    With ``perm_inv`` (an (n_src,) permutation, host array or device
+    tensor: source row i is the operators' row perm_inv[i]) the operator
+    takes its source in another row order than its ELLs': each upload
+    lands row i at row perm_inv[i] (``_src_window_to_device``), so the
+    kernels read the rows the ELLs name. The pipeline gives the mesh
+    cells' file-to-Morton map (mesh/reorder's ``perm_inv``), and so
+    hands the cell-located fields in file order.
+
     Raises ValueError when a tile references more than W_CAP unique
     source rows (the caller falls back to ops.apply.Regridder). With a
     ``mesh`` each rank applies its band of tile rows (see the module
@@ -620,7 +643,7 @@ class PackedSlabRegridder:
     accepts_blocks = True
 
     def __init__(self, ells, device, precision: str = "highest",
-                 rotation=None, cache_dir=None, mesh=None):
+                 rotation=None, cache_dir=None, mesh=None, perm_inv=None):
         if precision not in PRECISIONS:
             raise ValueError(f"precision must be one of {PRECISIONS}")
         if len({e.n_src for e in ells}) != 1:
@@ -666,6 +689,14 @@ class PackedSlabRegridder:
         self._loc_host, self._w_host = loc, loc_w
         self.slab_idx = torch.tensor(np.asarray(slab_idx).reshape(-1),
                                      device=self.device)
+        #: the source's row renumbering on upload, or None
+        self.perm_inv = None
+        if perm_inv is not None:
+            if len(perm_inv) != self.n_src:
+                raise ValueError(f"perm_inv has {len(perm_inv)} rows, the "
+                                 f"source {self.n_src}")
+            self.perm_inv = torch.as_tensor(perm_inv, dtype=torch.int64,
+                                            device=self.device)
         self._locws = self._As = self._gather = None
         self.W8 = None
 
@@ -808,22 +839,24 @@ class PackedSlabRegridder:
 
     def __call__(self, src_dev, cols=None, rotate=()):
         """src (n_src, C) tensor on the operator's device, columns laid
-        out as ``cols``. Returns the (nyp, nxp, C) device result
-        (tile-padded grid); under a mesh this rank's band of it,
-        (nty_l * 32, nxp, C)."""
+        out as ``cols``, rows renumbered as ``perm_inv`` says. Returns
+        the (nyp, nxp, C) device result (tile-padded grid); under a mesh
+        this rank's band of it, (nty_l * 32, nxp, C)."""
         if src_dev.dim() == 1:
             src_dev = src_dev[:, None]
         C = src_dev.shape[1]
         ranges, Cp = self._ranges(C, cols, rotate)
-        src_dev = torch.nn.functional.pad(src_dev.float(),
-                                          (0, Cp - C, 0, self.pad_rows))
-        return self._apply(src_dev, ranges, rotate=rotate)[:, :, :C]
+        buf = torch.zeros((self.n_src + self.pad_rows, Cp),
+                          dtype=torch.float32, device=src_dev.device)
+        _land(buf[:self.n_src, :C], src_dev.float(), self.perm_inv)
+        return self._apply(buf, ranges, rotate=rotate)[:, :, :C]
 
     def _held_bytes(self) -> int:
         """Device bytes of what each group's launch reads besides its
         source window: the slab index, the route's operands (``_kernel``,
-        built here on first use) and the rotation's cosa/sina."""
-        held = [self.slab_idx, self._cosa_t, self._sina_t,
+        built here on first use), the rotation's cosa/sina and the row
+        renumbering."""
+        held = [self.slab_idx, self._cosa_t, self._sina_t, self.perm_inv,
                 *self._kernel()[1]]
         return sum(t.numel() * t.element_size() for t in held
                    if t is not None)
@@ -894,7 +927,8 @@ class PackedSlabRegridder:
         for g in range(0, Cp, gw):
             count("apply.groups", 1)
             src_dev = _src_window_to_device(src, g, min(gw, Cp - g),
-                                            self.device, self.pad_rows)
+                                            self.device, self.pad_rows,
+                                            self.perm_inv)
             o = self._apply(src_dev, ranges, g, rotate)
             del src_dev
             _fetch_strips(o, C, ny, nx, g, root_only, out, strip_sink,

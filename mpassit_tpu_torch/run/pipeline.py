@@ -61,6 +61,12 @@ from ..io.wrf_writer import (
     write_output,
 )
 from ..mesh.mpas import MPASMesh, mesh_from_file
+from ..mesh.reorder import (
+    ReorderedMesh,
+    apply_perm,
+    reorder_cells_by_latitude,
+    reorder_cells_morton,
+)
 from ..weights.bilinear import (
     bilinear_cell_weights,
     bilinear_vertex_weights,
@@ -197,11 +203,18 @@ class _ApplyBatch:
     """Cross-category bundle packing: every stack routed to the SAME weight
     operator joins one (n_src, C_total) apply; sinks run after the apply,
     in add() order. With a ``writer``, parts carrying ``stream`` entries
-    write their fetched strips directly to the file (see _StripRouter)."""
+    write their fetched strips directly to the file (see _StripRouter).
 
-    def __init__(self, rg, dtype, root_only: bool = False):
+    ``perm`` (mesh/reorder's, data_new = data_old[perm]) marks sources
+    added in file order for an operator built on the renumbered cells.
+    An operator that renumbers its uploads (``perm_inv``) takes them as
+    they are; any other is handed them permuted on the host
+    (``reorder.host_bytes``)."""
+
+    def __init__(self, rg, dtype, root_only: bool = False, perm=None):
         self.rg, self.dtype = rg, dtype
         self.root_only = root_only
+        self.perm = perm
         self.parts = []   # (n_cols, src_matrix, squeeze, sink, tag, stream)
 
     def add(self, src, sink, tag=None, stream=None):
@@ -243,6 +256,10 @@ class _ApplyBatch:
         src = []
         for _, m, _, _, _, _ in self.parts:
             src.extend(m if isinstance(m, list) else [m])
+        if (self.perm is not None
+                and getattr(self.rg, "perm_inv", None) is None):
+            src = [apply_perm(b, self.perm) for b in src]
+            count("reorder.host_bytes", sum(b.nbytes for b in src))
         if not getattr(self.rg, "accepts_blocks", False):
             # gather engines take one host matrix
             src = np.concatenate(
@@ -288,8 +305,7 @@ def _run_batches_packed(batches, rgs, weights, root_only, device,
     performed."""
     if os.environ.get("MPASSIT_NO_PACK") == "1":
         return False
-    cell_keys = [k for k in ("bilinear", "nearest", "conserve")
-                 if k in batches and batches[k].parts]
+    cell_keys = [k for k in CELL_KEYS if k in batches and batches[k].parts]
     if len(cell_keys) < 2 or not all(
             isinstance(rgs[k], PackedSlabRegridder) for k in cell_keys):
         return False
@@ -320,7 +336,8 @@ def _run_batches_packed(batches, rgs, weights, root_only, device,
             [weights[k] for k in cell_keys], device,
             precision=ref_rg.precision,
             rotation=(grid.cosa, grid.sina) if rotate else None,
-            cache_dir=ref_rg.cache_dir, mesh=ref_rg.mesh)
+            cache_dir=ref_rg.cache_dir, mesh=ref_rg.mesh,
+            perm_inv=ref_rg.perm_inv)
     except ValueError:
         return False             # e.g. union exceeds the W cap
     # list of per-part column blocks, assembled on the device
@@ -380,11 +397,11 @@ def _build_stream_plan(cfg, routing, data) -> dict:
 
 
 def _stack_apply(rg, data: InputData, specs, ndim: int, dtype=np.float32,
-                 root_only: bool = False, writer=None):
+                 root_only: bool = False, writer=None, perm=None):
     """One-shot bundle apply (per-field conservative regrids,
     interp_as_bundle=.false.). Returns [(out_name, arr, units, desc)], or
     [] when the result streams to ``writer``."""
-    batch = _ApplyBatch(rg, dtype, root_only=root_only)
+    batch = _ApplyBatch(rg, dtype, root_only=root_only, perm=perm)
     res = []
     batch.add_stack(data, specs, ndim, res.extend)
     batch.run(writer=writer)
@@ -393,7 +410,7 @@ def _stack_apply(rg, data: InputData, specs, ndim: int, dtype=np.float32,
 
 def _make_regridder(ell: ELLWeights, dtype, device, mesh=None,
                     precision="highest", source_decomp="replicate",
-                    cache_dir=None):
+                    cache_dir=None, perm_inv=None):
     """Pick the apply engine: the tile-packed kernel engine for f32 2-D
     grids, falling back to the plain gather Regridder for f64 runs, 1-D
     targets, or tiles over W_CAP. With ``mesh`` (n_device_shards), the
@@ -401,14 +418,17 @@ def _make_regridder(ell: ELLWeights, dtype, device, mesh=None,
     "ring"/"allgather" the SOURCE is sharded too and the halo exchanged
     between ranks (the reference's route-handle communication,
     interp.F90:123-134). Without a mesh source_decomp changes nothing, as
-    in the JAX package."""
+    in the JAX package. ``perm_inv``, the renumbering of the source's
+    rows into the ELL's, goes to the tile-packed engine, which renumbers
+    its uploads; the others take none (``_ApplyBatch``)."""
     if mesh is not None and source_decomp != "replicate":
         return SourceShardedRegridder(ell, mesh, dtype=dtype,
                                       comm=source_decomp)
     if dtype == torch.float32 and len(ell.dst_shape) == 2:
         try:
             return PackedSlabRegridder([ell], device, precision=precision,
-                                       cache_dir=cache_dir, mesh=mesh)
+                                       cache_dir=cache_dir, mesh=mesh,
+                                       perm_inv=perm_inv)
         except ValueError:
             pass
     if mesh is not None:
@@ -442,7 +462,12 @@ def _device_mesh(cfg: Config, device):
 
 @dataclasses.dataclass
 class PipelineArtifacts:
-    """Intermediate state, exposed for tests/benchmarks."""
+    """Intermediate state, exposed for tests/benchmarks. ``mesh`` and
+    ``data`` are in the input file's cell order. The weights are built
+    on the cells renumbered (``renumbered_cells``), and the tile-packed
+    ``regridders`` over the cells take their sources in file order; an
+    engine that cannot renumber (``_make_regridder``'s others) takes
+    them renumbered."""
 
     cfg: Config
     grid: TargetGrid
@@ -452,6 +477,23 @@ class PipelineArtifacts:
     result: RegridResult
     regridders: dict
     timings: Timings
+
+
+#: the methods whose source is the mesh's cells
+CELL_KEYS = ("bilinear", "nearest", "conserve")
+
+
+def renumbered_cells(cfg: Config, mesh: MPASMesh,
+                     grid: TargetGrid) -> ReorderedMesh | None:
+    """cell_order = "morton": the mesh's cells renumbered along a Z-curve
+    over the target's index space (in latitude bands on a target with no
+    projection), so that each target tile's slab gather reads a compact
+    span of source rows; the weights are built on it. None for "none"."""
+    if cfg.cell_order != "morton":
+        return None
+    if grid.proj is not None:
+        return reorder_cells_morton(mesh, grid.proj)
+    return reorder_cells_by_latitude(mesh)
 
 
 def build_weights(cfg: Config, mesh: MPASMesh, grid: TargetGrid,
@@ -598,38 +640,33 @@ def _run_stages(cfg: Config, device, dtype,
                     f"FIELD {wname} HAS {warr.shape[0]} CELLS BUT THE MPAS "
                     f"GRID FILE HAS {mesh.ncells}")
 
-    # cell_order='morton': renumber source cells along a Z-curve over the
-    # target's index space BEFORE weight generation, so each target tile's
-    # slab gather reads a compact span of source rows; vertex-located
-    # fields keep their vertex numbering. Results are unchanged.
+    # cell_order='morton': the weights are built on the source cells
+    # renumbered (renumbered_cells); vertex-located fields keep their
+    # vertex numbering. The cell-located fields stay in file order: an
+    # operator over the cells renumbers them on the device as it uploads
+    # them, and one that cannot is handed them permuted (_ApplyBatch).
+    # Results are unchanged.
+    wmesh, perm, perm_inv = mesh, None, None
     if cfg.cell_order == "morton":
         with timer("reorder_cells", sync=False):
-            from ..mesh.reorder import (
-                apply_perm,
-                reorder_cells_by_latitude,
-                reorder_cells_morton,
-            )
-
-            ro = (reorder_cells_morton(mesh, grid.proj)
-                  if grid.proj is not None
-                  else reorder_cells_by_latitude(mesh))
-            mesh = ro.mesh
-            vert_names = {s.in_name for s in routing.vert_3d}
-            for k in list(data.fields):
-                if k not in vert_names:
-                    data.fields[k] = apply_perm(data.fields[k], ro.perm)
-            if data.u is not None:
-                data.u = apply_perm(data.u, ro.perm)
-            if data.v is not None:
-                data.v = apply_perm(data.v, ro.perm)
+            ro = renumbered_cells(cfg, mesh, grid)
+        wmesh, perm, perm_inv = ro.mesh, ro.perm, ro.perm_inv
+        del ro
 
     with timer("weight_generation"):
-        weights = build_weights(cfg, mesh, grid, routing)
+        weights = build_weights(cfg, wmesh, grid, routing)
+        # the renumbered mesh (and the search trees the builds cache on
+        # it) is the weights' alone: not held through the apply
+        del wmesh
         dev_mesh = _device_mesh(cfg, device)
+        cell_map = (None if perm_inv is None
+                    else torch.as_tensor(perm_inv, device=device))
         rgs = {k: _make_regridder(v, dtype, device, mesh=dev_mesh,
                                   precision=cfg.apply_precision,
                                   source_decomp=cfg.source_decomp,
-                                  cache_dir=cfg.weights_cache_dir)
+                                  cache_dir=cfg.weights_cache_dir,
+                                  perm_inv=(cell_map if k in CELL_KEYS
+                                            else None))
                for k, v in weights.items()}
 
     res = RegridResult(nz=mesh.nz, nzp1=mesh.nzp1, nsoil=mesh.nsoil)
@@ -668,12 +705,15 @@ def _run_stages(cfg: Config, device, dtype,
         def batch_for(key: str) -> _ApplyBatch:
             if key not in batches:
                 batches[key] = _ApplyBatch(rgs[key], np_dtype,
-                                           root_only=root_only)
+                                           root_only=root_only,
+                                           perm=(perm if key in CELL_KEYS
+                                                 else None))
             return batches[key]
 
         # wind mass fields feed the restagger, sharded too: always
         # gathered to every rank
-        wind_batch = _ApplyBatch(rgs["bilinear"], np_dtype, root_only=False)
+        wind_batch = _ApplyBatch(rgs["bilinear"], np_dtype, root_only=False,
+                                 perm=perm)
         # degeneracy guard (register R11): warn before any Q4 rotation if
         # the grid's rotation angles approach 90 deg (|cosa| -> 0)
         if cfg.proj_code == PROJ_LC and grid.cosa is not None:
@@ -722,7 +762,7 @@ def _run_stages(cfg: Config, device, dtype,
                         for one in _stack_apply(rgs["conserve"], data, [s], 2,
                                                 np_dtype,
                                                 root_only=root_only,
-                                                writer=writer)
+                                                writer=writer, perm=perm)
                     ]
             if routing.nstd_2d:
                 batch_for("nearest").add_stack(

@@ -214,24 +214,27 @@ def warm_cache(nml):
     from ..fields.registry import build_routing
     from ..grids.target import build_target_grid
     from ..mesh.mpas import mesh_from_file
-    from ..mesh.reorder import reorder_cells_by_latitude, reorder_cells_morton
     from ..ops.matmul_apply import PackedSlabRegridder
-    from ..run.pipeline import _make_regridder, build_weights
+    from ..run.pipeline import (
+        CELL_KEYS,
+        _make_regridder,
+        build_weights,
+        renumbered_cells,
+    )
 
     cfg = Config.from_namelist(nml)
     grid = build_target_grid(cfg)
     mesh = mesh_from_file(cfg.grid_file_input_grid)
-    if cfg.cell_order == "morton":
-        mesh = (reorder_cells_morton(mesh, grid.proj)
-                if grid.proj is not None
-                else reorder_cells_by_latitude(mesh)).mesh
+    ro = renumbered_cells(cfg, mesh, grid)
+    if ro is not None:
+        mesh = ro.mesh
     routing = build_routing(cfg.varlist_dir, cfg.interp_diag,
                             cfg.interp_hist, cfg.wrf_mod_vars)
     weights = build_weights(cfg, mesh, grid, routing)
     cpu, cache = torch.device("cpu"), cfg.weights_cache_dir
     for ell in weights.values():
         _make_regridder(ell, torch.float32, cpu, cache_dir=cache)
-    cell = [k for k in ("bilinear", "nearest", "conserve") if k in weights]
+    cell = [k for k in CELL_KEYS if k in weights]
     if len(cell) >= 2:
         PackedSlabRegridder([weights[k] for k in cell], cpu,
                             cache_dir=cache)

@@ -6,7 +6,10 @@ attributes, the one-hot and in-kernel-gather routes under their switches
 bf16 terms; gather: bit for bit the port's default route), the classic-format (CDF-2) input path chip_smoke.py uses on
 machines without h5py, the CLI's exit codes and device rule, and the
 sharding options on one process (n_device_shards, source_decomp) and a
-one-rank process group."""
+one-rank process group. The default cell order renumbers the cells on the
+device as they are uploaded: no host copy, the artifacts in file order;
+the float64 engines, which take no map, are handed them renumbered on
+the host."""
 
 import dataclasses
 import os
@@ -21,7 +24,14 @@ import torch
 from mpassit_tpu.io.nc4 import open_dataset
 from mpassit_tpu.run.pipeline import run_pipeline as jax_run
 from mpassit_tpu_torch.config import Config as PortConfig
+from mpassit_tpu_torch.io.mpas_reader import (
+    InputData,
+    read_diag_data,
+    read_hist_data,
+)
+from mpassit_tpu_torch.mesh.mpas import mesh_from_file
 from mpassit_tpu_torch.ops import gather_kernel as gk
+from mpassit_tpu_torch.ops import matmul_apply as tm
 from mpassit_tpu_torch.ops import onehot_kernel as ok
 from mpassit_tpu_torch.ops import packed_kernel as pk
 from mpassit_tpu_torch.run import pipeline as tpipe
@@ -412,3 +422,92 @@ def test_module_cli_entry(tmp_path):
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 231
     assert "does not exist" in proc.stderr
+
+
+def _reader_data(cfg, routing, dtype):
+    data = InputData()
+    if cfg.interp_diag:
+        read_diag_data(cfg.diag_file_input_grid, routing, data,
+                       cfg.interp_hist, dtype=dtype)
+    if cfg.interp_hist:
+        read_hist_data(cfg.hist_file_input_grid, routing, data, dtype=dtype)
+    return data
+
+
+def _assert_same_data(got, want):
+    assert sorted(got.fields) == sorted(want.fields)
+    for k in want.fields:
+        assert got.fields[k].tobytes() == want.fields[k].tobytes(), k
+    for a, b in ((got.u, want.u), (got.v, want.v)):
+        assert a.tobytes() == b.tobytes()
+
+
+def test_default_run_renumbers_on_the_device(tmp_path, monkeypatch):
+    """cell_order = "morton" (the default): nothing permuted on the host,
+    the union pass's uploads renumbered on the device, the artifacts in
+    file order, and the result the JAX package's."""
+    _, cfg, _, _ = make_case(tmp_path)
+    assert cfg.cell_order == "morton"
+    ref = jax_run(cfg, jnp.float32)
+    cfg.output_file = str(tmp_path / "out_torch.nc")
+    dump = tmp_path / "dump.npz"
+    monkeypatch.setenv("MPASSIT_DUMP_RESULT", str(dump))
+    art = tpipe.run_pipeline(_port(cfg), device="cpu")
+
+    c = art.timings.counts
+    assert c.get("reorder.host_bytes", 0) == 0
+    assert c["apply.renumbered_bytes"] > 0
+    assert "reorder_cells" in art.timings.stages
+    # the union pass renumbers all it uploads; the vertex field and the
+    # two restaggers (sources not the cells) upload the rest
+    vert = sum(art.data.fields[s.in_name].astype(np.float32).nbytes
+               for s in art.routing.vert_3d)
+    ny, nx = art.grid.ny, art.grid.nx
+    nz = art.mesh.nz
+    restag = 2 * ny * nx * nz * 4
+    assert c["apply.renumbered_bytes"] == \
+        c["apply.upload_bytes"] - vert - restag
+
+    _assert_same_data(art.data, _reader_data(
+        art.cfg, art.routing, np.float32))
+    # the mesh as read: its cells in the file's order
+    read = mesh_from_file(cfg.grid_file_input_grid)
+    for k in ("lat_cell", "lon_cell", "vertices_on_cell",
+              "cells_on_vertex", "ter"):
+        assert getattr(art.mesh, k).tobytes() == getattr(read, k).tobytes()
+
+    want = _arrays(ref.result)
+    with np.load(dump) as z:
+        assert sorted(z.files) == sorted(want)
+        for k in want:
+            a = z[k]
+            assert a.shape == want[k].shape, k
+            bound = 1e-5 * max(1.0, float(np.abs(want[k]).max()))
+            err = float(np.abs(np.asarray(a, np.float64) - want[k]).max())
+            assert err <= bound, (k, err, bound)
+
+
+@pytest.mark.parametrize("order", ["morton", "none"])
+def test_float64_renumbers_on_the_host(tmp_path, order):
+    """The float64 engines take no map: the pipeline hands them every
+    cell-located source permuted on the host (``reorder.host_bytes``, the
+    bytes of each such array applied), and with cell_order = "none"
+    nothing is renumbered anywhere."""
+    _, cfg, _, _ = make_case(tmp_path, cfg_overrides={
+        "compute_dtype": "float64", "cell_order": order})
+    cfg.output_file = str(tmp_path / "out_torch.nc")
+    art = tpipe.run_pipeline(_port(cfg), device="cpu")
+    assert not any(isinstance(r, tm.PackedSlabRegridder)
+                   for r in art.regridders.values())
+    c = art.timings.counts
+    assert "apply.renumbered_bytes" not in c
+    if order == "none":
+        assert "reorder.host_bytes" not in c
+        assert "reorder_cells" not in art.timings.stages
+        return
+    vert = {s.in_name for s in art.routing.vert_3d}
+    cells = [a for k, a in art.data.fields.items() if k not in vert]
+    cells += [art.data.u, art.data.v, art.mesh.ter]
+    assert c["reorder.host_bytes"] == sum(a.nbytes for a in cells)
+    _assert_same_data(art.data, _reader_data(
+        art.cfg, art.routing, np.float64))
